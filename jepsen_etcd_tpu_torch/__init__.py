@@ -1,0 +1,16 @@
+"""PyTorch/CUDA port of jepsen_etcd_tpu's linearizability checker.
+
+The JAX package ``jepsen_etcd_tpu`` is the reference; this package keeps
+its module layout (``core/``, ``models/``, ``checkers/``, ``ops/``,
+``native/``) so each counterpart sits at the same relative path. It
+imports torch and numpy, never jax, and nothing of the JAX package.
+
+Entry points take an explicit ``device`` and default to ``cuda``: with
+no card present they raise unless the caller passes ``device="cpu"``,
+where every hand-written kernel is replaced by its plain PyTorch
+version. See ``device.resolve_device``.
+"""
+
+from .device import resolve_device
+
+__all__ = ["resolve_device"]

@@ -1,0 +1,144 @@
+"""The PyTorch port stands alone: it imports neither jax nor the JAX
+package, and its entry points run on CUDA unless told otherwise."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+PORT_MODULES = [
+    "jepsen_etcd_tpu_torch",
+    "jepsen_etcd_tpu_torch.device",
+    "jepsen_etcd_tpu_torch.testing",
+    "jepsen_etcd_tpu_torch.core",
+    "jepsen_etcd_tpu_torch.core.op",
+    "jepsen_etcd_tpu_torch.core.history",
+    "jepsen_etcd_tpu_torch.models",
+    "jepsen_etcd_tpu_torch.checkers",
+    "jepsen_etcd_tpu_torch.checkers.core",
+    "jepsen_etcd_tpu_torch.checkers.linearizable",
+    "jepsen_etcd_tpu_torch.checkers.tpu_linearizable",
+    "jepsen_etcd_tpu_torch.ops",
+    "jepsen_etcd_tpu_torch.ops.common",
+    "jepsen_etcd_tpu_torch.ops.wgl",
+    "jepsen_etcd_tpu_torch.ops.wgl_mxu",
+    "jepsen_etcd_tpu_torch.ops._cuda",
+    "jepsen_etcd_tpu_torch.native",
+    "jepsen_etcd_tpu_torch.native.oracle",
+]
+
+
+def test_port_imports_no_jax_and_nothing_of_the_jax_package():
+    # a fresh interpreter: conftest and the reference tests import jax
+    # into this one
+    code = (
+        "import importlib, sys\n"
+        f"sys.path.insert(0, {REPO!r})\n"
+        f"for m in {PORT_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import runpy\n"
+        f"runpy.run_path({os.path.join(REPO, 'chip_smoke.py')!r})\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax'\n"
+        "             or m.startswith('jax.')\n"
+        "             or m == 'jepsen_etcd_tpu'\n"
+        "             or m.startswith('jepsen_etcd_tpu.'))\n"
+        "print('BAD', bad)\n"
+        "assert not bad, bad\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "BAD []" in out.stdout
+
+
+def test_port_sources_name_no_jax_import():
+    """No file of the port (and not chip_smoke.py) has an import line
+    naming jax or the JAX package."""
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(os.path.join(REPO,
+                                               "jepsen_etcd_tpu_torch")):
+        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    offenders = []
+    for path in paths:
+        with open(path) as fh:
+            for n, line in enumerate(fh, 1):
+                s = line.strip()
+                if not s.startswith(("import ", "from ")):
+                    continue
+                mod = s.split()[1]
+                if mod.split(".")[0] in ("jax", "jaxlib",
+                                         "jepsen_etcd_tpu"):
+                    offenders.append(f"{path}:{n}: {s}")
+    assert not offenders, offenders
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def _tiny_pack():
+    from jepsen_etcd_tpu_torch.core.history import History
+    from jepsen_etcd_tpu_torch.core.op import Op
+    from jepsen_etcd_tpu_torch.ops import wgl
+    h = History([
+        Op(type="invoke", process=0, f="write", value=[None, 1]),
+        Op(type="ok", process=0, f="write", value=[1, 1]),
+        Op(type="invoke", process=1, f="read", value=[None, None]),
+        Op(type="ok", process=1, f="read", value=[1, 1]),
+    ])
+    return h, wgl.pack_register_history(h)
+
+
+@pytest.mark.parametrize("entry", ["resolve_device", "checker",
+                                   "check_packed", "check_packed_mxu",
+                                   "check_packed_batch_mxu"])
+def test_entry_points_raise_without_cuda_unless_cpu(no_cuda, entry):
+    from jepsen_etcd_tpu_torch.checkers.tpu_linearizable import \
+        TPULinearizableChecker
+    from jepsen_etcd_tpu_torch.device import resolve_device
+    from jepsen_etcd_tpu_torch.ops import wgl, wgl_mxu
+    h, p = _tiny_pack()
+    call = {
+        "resolve_device": lambda dev: resolve_device(dev),
+        "checker": lambda dev: TPULinearizableChecker(
+            cpu_cutoff=None, device=dev).check({}, h),
+        "check_packed": lambda dev: wgl.check_packed(p, device=dev),
+        "check_packed_mxu": lambda dev: wgl_mxu.check_packed_mxu(
+            p, device=dev),
+        "check_packed_batch_mxu": lambda dev: wgl_mxu.check_packed_batch_mxu(
+            [p], device=dev),
+    }[entry]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call(None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call("cuda")
+    got = call("cpu")
+    if entry == "resolve_device":
+        assert got == torch.device("cpu")
+    elif entry == "check_packed_batch_mxu":
+        assert got[0]["valid?"] is True
+    else:
+        assert got["valid?"] is True
+
+
+def test_wave_search_rejects_bad_inputs():
+    from jepsen_etcd_tpu_torch.ops import wgl_mxu
+    tab = torch.zeros((1, 16, 128), dtype=torch.int32)
+    scal = torch.zeros((1, 16, 8), dtype=torch.int32)
+    with pytest.raises(TypeError):
+        wgl_mxu.wave_search(tab.long(), scal, 32)
+    with pytest.raises(ValueError):
+        wgl_mxu.wave_search(tab, scal, 48)
+    with pytest.raises(ValueError):
+        wgl_mxu.wave_search(tab[:, :, :64], scal, 32)
+    with pytest.raises(ValueError):
+        wgl_mxu.wave_search(tab, scal[:, :8], 32)
+    out = wgl_mxu.wave_search(tab, scal, 32)
+    assert out.dtype == torch.int32 and tuple(out.shape) == (1, 4)
+    assert np.array_equal(out.numpy(), [[0, 0, 1, 1]])
