@@ -2,12 +2,18 @@
 
     python3 chip_smoke.py
 
-Builds every CUDA kernel of the port from the sources in this checkout,
-holds each against its plain PyTorch version on the card, drives the
-port's main path (single-key linearizability checking of a 27,000-entry
-register history through ``TPULinearizableChecker``) and shows that the
-path launched the kernels. Prints the card's name and power limit, a
-``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
+Builds every CUDA kernel of the port from the sources in this checkout
+(one nvcc per source, in parallel), holds each against its plain
+PyTorch version on the card, drives the port's paths and shows that
+each launched its kernel: single-key linearizability checking of a
+27,000-entry register history through ``TPULinearizableChecker`` (kernel
+wgl_wave), the watch checker on five watchers' logs of 12,000 values
+each (kernel indel_wave), and the capacity ladder (PyTorch ops on the
+card, at real size on a 26,992-entry history whose wave-kernel search
+overflows, its waves replayed from CUDA graphs and held against the
+eager loop), the spill BFS and ``check_prefix``. Prints the card's
+name and power limit, a ``{"kernels": [...]}`` line, and last
+``{"ok": true, "device": ...}``.
 Exits non-zero, with no result line, when CUDA is unavailable or any
 phase fails. Imports nothing of JAX or of the JAX package.
 """
@@ -28,8 +34,29 @@ ALU32_OPS_PER_S = 67e12
 #: 32-bit integer operations per candidate per wave in wgl_wave.cu's
 #: candidate body (loads, compares, shifts, selects), counted at wk=32
 WGL_OPS_PER_CANDIDATE = 64
+#: 32-bit integer operations per DP cell in indel_wave.cu's lane body:
+#: j = kd - i, the i == 0 / j == 0 tests, two index computations, the
+#: a and b loads and their compare, two diagonal loads, min, +1, select,
+#: the store, and the lane loop's increment and test
+INDEL_OPS_PER_CELL = 16
 
 MAIN_SEED, MAIN_PROCS, MAIN_OPS = 2026, 6, 13_500
+#: the watch cell: 5 writers and 5 watchers (the reference workload's
+#: threads on 5 nodes), 12,000 writes, so each watcher's log holds about
+#: 12,000 values (a 60 s run at 200 writes/s); the long logs are a 300 s
+#: run at the same rate
+WATCH_SEED, WATCH_WRITERS, WATCH_WATCHERS = 2026, 5, 5
+WATCH_WRITES, WATCH_LONG_WRITES = 12_000, 60_000
+#: the ladder at real size: the register cell's seed and length over 8
+#: processes (26,992 entries, R=10,473). Valid, the wave kernel accepts
+#: it although its 32 slots overflow on the way; with one impossible
+#: read at 90 % of the history it overflows and dies, so the checker
+#: climbs the ladder from rung 32 for about 9,400 waves
+LADDER_BIG_PROCS, LADDER_BIG_AT = 8, 0.9
+#: gen_history seed (n_procs=10, n_ops=60, values=4, info_rate=0.25,
+#: dur_scale=6.0) of a valid info-op history whose frontier peaks at 270:
+#: the ladder climbs 32 -> 128 -> 256 -> 512
+LADDER_SEED = 40
 
 
 def fail(msg: str) -> None:
@@ -92,6 +119,81 @@ def hold(tab, scal, wk, what: str) -> int:
     return err
 
 
+def watch_inputs(history, concurrency: int, dev, stages=None):
+    """The watch checker's edit-distance inputs for a history: its
+    complete logs' threads, the wavefront's (a, b, m) on dev as the
+    checker builds them (``edit_distance.device_inputs``), and the
+    canonical log. ``stages`` (a dict) gets the host-clock seconds of
+    grouping and of encoding, padding and the host-to-device copy."""
+    import torch
+    from jepsen_etcd_tpu_torch.checkers import watch
+    from jepsen_etcd_tpu_torch.ops import edit_distance as ed
+    stages = {} if stages is None else stages
+    t0 = time.perf_counter()
+    test = {"concurrency": concurrency}
+    logs = watch.per_thread_logs(test, history)
+    gaps = watch.per_thread_gaps(test, history)
+    full = sorted(t for t in logs if not gaps.get(t))
+    canonical = watch.canonical_log([logs[t] for t in full])
+    stages["group"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = ed.device_inputs(canonical, [logs[t] for t in full], dev)
+    torch.cuda.synchronize()
+    stages["inputs"] = time.perf_counter() - t0
+    return full, out, canonical
+
+
+def fuzz_indel(seed: int, K: int, n: int, dev):
+    """K logs around a random canonical log of n codes: copies, random
+    logs up to n + 50 long, and (for K > 1) an empty one."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, 6, n).astype(np.int32)
+    logs = [a.copy() if k % 3 == 0 else
+            rng.integers(0, 6, int(rng.integers(0, n + 50))).astype(np.int32)
+            for k in range(K)]
+    if K > 1:
+        logs[-1] = logs[-1][:0]
+    b = np.full((K, max([len(x) for x in logs] + [1])), -2, np.int32)
+    for k, x in enumerate(logs):
+        b[k, :len(x)] = x
+    m = np.array([len(x) for x in logs], np.int32)
+    return [torch.from_numpy(x).to(dev) for x in (a, b, m)]
+
+
+def hold_indel(a, b, m, what: str, global_scratch=False) -> int:
+    """indel_wave vs its plain version on the same CUDA tensors: exact.
+    ``global_scratch`` reports no shared memory to opt in to, so the
+    diagonals go to the global scratch buffer. Prints the launch's
+    device time (CUDA events, one cold launch)."""
+    import torch
+    from jepsen_etcd_tpu_torch.ops import _cuda
+    from jepsen_etcd_tpu_torch.ops import edit_distance as ed
+    optin = _cuda.indel_smem_optin
+    limit = 0 if global_scratch else optin(a.device)
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    if global_scratch:
+        _cuda.indel_smem_optin = lambda dev: 0
+    try:
+        t0.record()
+        got = ed.wavefront(a, b, m)
+        t1.record()
+    finally:
+        _cuda.indel_smem_optin = optin
+    torch.cuda.synchronize()
+    ref = ed.wavefront_reference(a, b, m)
+    err = int((got.long() - ref.long()).abs().max()) if len(got) else 0
+    regime = "shared" if 3 * (a.shape[0] + 1) * 4 <= limit else "global"
+    print(f"  {what}: K={b.shape[0]} n={a.shape[0]} max m="
+          f"{int(m.max()) if len(m) else 0} diagonals in {regime} memory "
+          f"max_abs_err={err} ({t0.elapsed_time(t1):.3f} ms)", flush=True)
+    if err != 0:
+        fail(f"indel_wave disagrees with its plain version on {what}")
+    return err
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -101,8 +203,11 @@ def main() -> None:
     from jepsen_etcd_tpu_torch.checkers.tpu_linearizable import \
         TPULinearizableChecker
     from jepsen_etcd_tpu_torch.models import VersionedRegister
+    from jepsen_etcd_tpu_torch.checkers.watch import WatchChecker
     from jepsen_etcd_tpu_torch.ops import _cuda, wgl, wgl_mxu
-    from jepsen_etcd_tpu_torch.testing import gen_history
+    from jepsen_etcd_tpu_torch.ops import edit_distance as ed
+    from jepsen_etcd_tpu_torch.testing import concurrent_writes_history, \
+        gen_history, gen_watch_history, impossible_read_at
 
     dev = torch.device("cuda")
     card = card_line()
@@ -110,10 +215,13 @@ def main() -> None:
     kind = torch.cuda.get_device_name(0)
 
     # -- 1. build -----------------------------------------------------
+    from concurrent.futures import ThreadPoolExecutor
     t0 = time.perf_counter()
-    _cuda.build("wgl_wave")
-    print(f"build: wgl_wave.cu in {time.perf_counter() - t0:.2f} s",
-          flush=True)
+    sources = ["wgl_wave", "indel_wave"]
+    with ThreadPoolExecutor(len(sources)) as pool:
+        list(pool.map(_cuda.build, sources))
+    print(f"build: {', '.join(s + '.cu' for s in sources)} (in parallel) "
+          f"in {time.perf_counter() - t0:.2f} s", flush=True)
 
     # -- 2. kernel vs plain on the card -------------------------------
     print("kernel vs plain (exact, tolerance 0):", flush=True)
@@ -150,6 +258,31 @@ def main() -> None:
         gen_history(random.Random(11), n_procs=6, n_ops=2_000))
     max_err = max(max_err, hold(*tables_for([p2k], dev), "one 2k-op key"))
 
+    print("indel_wave vs plain (exact, tolerance 0):", flush=True)
+    ed_err = 0
+    for seed, K, n in [(1, 1, 0), (2, 3, 1), (3, 5, 130), (4, 9, 600),
+                       (5, 4, 2000)]:
+        for global_scratch in (False, True):
+            ed_err = max(ed_err, hold_indel(
+                *fuzz_indel(seed, K, n, dev), f"fuzz seed {seed}",
+                global_scratch=global_scratch))
+    wbad = gen_watch_history(random.Random(WATCH_SEED),
+                             n_writers=WATCH_WRITERS,
+                             n_watchers=WATCH_WATCHERS,
+                             n_writes=WATCH_WRITES, corrupt="drop",
+                             corrupt_thread=2)
+    wconc = WATCH_WRITERS + WATCH_WATCHERS
+    ed_err = max(ed_err, hold_indel(*watch_inputs(wbad, wconc, dev)[1],
+                                    "watch logs, one corrupted"))
+    wlong = gen_watch_history(random.Random(WATCH_SEED + 1),
+                              n_writers=WATCH_WRITERS,
+                              n_watchers=WATCH_WATCHERS,
+                              n_writes=WATCH_LONG_WRITES,
+                              corrupt="reorder")
+    ed_err = max(ed_err, hold_indel(*watch_inputs(wlong, wconc, dev)[1],
+                                    "long watch logs, one corrupted"))
+    del wlong
+
     # -- 3. the main path at full size --------------------------------
     h = gen_history(random.Random(MAIN_SEED), n_procs=MAIN_PROCS,
                     n_ops=MAIN_OPS)
@@ -157,7 +290,7 @@ def main() -> None:
                       n_ops=MAIN_OPS, corrupt=True)
     checker = TPULinearizableChecker()
     torch.cuda.synchronize()
-    wgl_mxu.LAUNCHES = 0
+    wgl_mxu.LAUNCHES = ed.LAUNCHES = 0
     t0 = time.perf_counter()
     res = checker.check({}, h)
     torch.cuda.synchronize()
@@ -202,8 +335,19 @@ def main() -> None:
     t_pack = stages["pack"]
     btab, bscal, bwk = tables_for(batch, dev)
     batch_ms = cuda_ms(lambda: wgl_mxu.wave_search(btab, bscal, bwk), 21)
+    # the batch's bound, counted as the single key's below: per key, one
+    # table row and one scal row read per wave run and 16 B written;
+    # 64 operations per candidate per wave
+    bwaves = int(wgl_mxu.wave_search(btab, bscal, bwk)[:, 3].sum())
+    brow_bytes = (btab.shape[2] + bscal.shape[2]) * 4
+    bbytes_ms = (bwaves * brow_bytes + 16 * len(batch)) \
+        / HBM_BYTES_PER_S * 1e3
+    bops_ms = (bwaves * wgl_mxu.F * bwk * WGL_OPS_PER_CANDIDATE
+               / ALU32_OPS_PER_S * 1e3)
     print(f"batch of {len(batch)} keys (r_pad {btab.shape[1]}): one "
-          f"launch {batch_ms:.3f} ms", flush=True)
+          f"launch {batch_ms:.3f} ms, {bwaves} waves in all, bound "
+          f"{max(bbytes_ms, bops_ms):.4f} ms (bytes {bbytes_ms:.4f} ms, "
+          f"operations {bops_ms:.4f} ms)", flush=True)
     kern_ms = cuda_ms(lambda: wgl_mxu.wave_search(tab, scal, wk), 21)
     # end-to-end: the whole check, repeated (median and p90 of 110)
     walls = []
@@ -240,6 +384,187 @@ def main() -> None:
           f"{bytes_ms:.4f} ms, operations {ops_ms:.4f} ms); corrupted "
           f"check wall {wall_bad_s:.3f} s", flush=True)
 
+    # -- 5. the watch path at full size --------------------------------
+    wh = gen_watch_history(random.Random(WATCH_SEED),
+                           n_writers=WATCH_WRITERS,
+                           n_watchers=WATCH_WATCHERS, n_writes=WATCH_WRITES)
+    wtest = {"concurrency": wconc}
+    wchecker = WatchChecker()
+    torch.cuda.synchronize()
+    wgl_mxu.LAUNCHES = ed.LAUNCHES = 0
+    t0 = time.perf_counter()
+    wres = wchecker.check(wtest, wh)
+    wall_w = time.perf_counter() - t0
+    watch_launches = ed.LAUNCHES
+    t0 = time.perf_counter()
+    wres_bad = wchecker.check(wtest, wbad)
+    wall_w_bad = time.perf_counter() - t0
+    watch_launches_bad = ed.LAUNCHES - watch_launches
+    print(f"watch path: {len(wh)} entries, {WATCH_WATCHERS} logs -> "
+          f"valid?={wres['valid?']} revisions={wres['revisions']} "
+          f"launches={watch_launches} wall {wall_w:.3f} s", flush=True)
+    if wres.get("valid?") is not True:
+        fail(f"watch path verdict {wres}")
+    if watch_launches < 1 or watch_launches_bad < 1:
+        fail("the watch path did not launch indel_wave")
+    full, (wa, wb, wm), canonical = watch_inputs(wbad, wconc, dev)
+    plain_d = dict(zip(full, ed.wavefront_reference(wa, wb, wm).tolist()))
+    deltas = {d["thread"]: d["edit-distance"]
+              for d in wres_bad.get("deltas", [])}
+    print(f"watch path (corrupted copy): valid?={wres_bad['valid?']} "
+          f"edit-distance by thread {deltas}, plain version "
+          f"{plain_d} launches={watch_launches_bad} wall "
+          f"{wall_w_bad:.3f} s", flush=True)
+    if wres_bad.get("valid?") is not False or not deltas:
+        fail(f"corrupted watch history not refuted: {wres_bad}")
+    if any(plain_d[t] != d for t, d in deltas.items()) or \
+            {t for t, d in plain_d.items() if d} != set(deltas):
+        fail("watch edit distances differ from the plain version")
+    small = gen_watch_history(random.Random(5), n_writes=600,
+                              per_watch=50, corrupt="duplicate")
+    on_card = WatchChecker(use_tpu=True).check(wtest, small)
+    on_host = WatchChecker(use_tpu=False).check(wtest, small)
+    if on_card != on_host or on_card["valid?"] is not False:
+        fail("watch checker on the card disagrees with the Python DP")
+    # one check's stages on the host clock (diff_report: the corrupted
+    # copy's deltas, the only logs it runs on)
+    from jepsen_etcd_tpu_torch.checkers import watch
+    bad_logs = watch.per_thread_logs(wtest, wbad)
+    t0 = time.perf_counter()
+    for t in deltas:
+        ed.diff_report(canonical, bad_logs[t])
+    t_diff = time.perf_counter() - t0
+    wstages = {}
+    wa, wb, wm = watch_inputs(wh, wconc, dev, wstages)[1]
+    t0 = time.perf_counter()
+    ed.wavefront(wa, wb, wm).cpu()
+    wstages["kernel"] = time.perf_counter() - t0
+    wstages["diff_report"] = t_diff
+    print("watch path stages (s): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in wstages.items()), flush=True)
+    b2_ms = cuda_ms(lambda: ed.wavefront(wa, wb, wm), 11)
+    wwalls = []
+    for _ in range(21):
+        t0 = time.perf_counter()
+        wchecker.check(wtest, wh)
+        wwalls.append(time.perf_counter() - t0)
+    wwalls.sort()
+    wmed, wp90 = wwalls[10], wwalls[18]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    b2_ref = ed.wavefront_reference(wa, wb, wm)
+    torch.cuda.synchronize()
+    b2_plain_ms = (time.perf_counter() - t0) * 1e3
+    got = ed.wavefront(wa, wb, wm)
+    b2_err = int((got.long() - b2_ref.long()).abs().max())
+    ed_err = max(ed_err, b2_err)
+    if b2_err != 0:
+        fail("indel_wave disagrees with its plain version on the watch "
+             "path")
+    n_can = wa.shape[0]
+    cells = sum((n_can + 1) * (int(x) + 1) for x in wm.tolist())
+    steps = max(n_can + int(x) + 1 for x in wm.tolist())
+    b2_bytes_ms = 4 * (n_can + int(wm.sum()) + 2 * wm.shape[0]) \
+        / HBM_BYTES_PER_S * 1e3
+    b2_ops_ms = cells * INDEL_OPS_PER_CELL / ALU32_OPS_PER_S * 1e3
+    b2_bound_ms = max(b2_bytes_ms, b2_ops_ms)
+    print(f"watch path timing on {card}: check wall over {len(wwalls)} "
+          f"runs median {wmed:.4f} s, p90 {wp90:.4f} s; indel_wave "
+          f"{b2_ms:.3f} ms ({b2_ms * 1e3 / steps:.3f} us per diagonal, "
+          f"{steps} diagonals, {cells} cells), plain {b2_plain_ms:.1f} "
+          f"ms, bound {b2_bound_ms:.4f} ms (bytes {b2_bytes_ms:.6f} ms, "
+          f"operations {b2_ops_ms:.4f} ms); device idle share "
+          f"{1 - b2_ms / 1e3 / wmed:.3f} (1 - kernel / median check)",
+          flush=True)
+
+    # -- 6. the capacity ladder, the spill BFS and check_prefix ----------
+    big = gen_history(random.Random(MAIN_SEED), n_procs=LADDER_BIG_PROCS,
+                      n_ops=MAIN_OPS)
+    big_bad = impossible_read_at(big, LADDER_BIG_AT)
+    for what, hist, engine in [("valid", big, "mxu-wave"),
+                               ("impossible read", big_bad, "jnp-ladder")]:
+        t0 = time.perf_counter()
+        out = checker.check({}, hist)
+        wall_l = time.perf_counter() - t0
+        dfs = check_history(VersionedRegister(), hist)
+        print(f"ladder at real size, {LADDER_BIG_PROCS} processes, "
+              f"{len(hist)} entries, {what}: valid?={out['valid?']} "
+              f"engine={out.get('engine')} rungs={out.get('rungs')} "
+              f"peak-frontier={out.get('peak-frontier')} waves="
+              f"{out.get('waves')} overflowed-en-route="
+              f"{out.get('overflowed-en-route', False)} check wall "
+              f"{wall_l:.3f} s; native DFS valid?={dfs['valid?']}",
+              flush=True)
+        if out.get("engine") != engine or out["valid?"] is not dfs["valid?"]:
+            fail(f"ladder at real size, {what}: {out}")
+    # the ladder alone (wave kernel, then rungs 32 and 128), its waves
+    # replayed from CUDA graphs and issued one by one: same dict
+    p = wgl.pack_register_history(big_bad)
+    t0 = time.perf_counter()
+    graphed = wgl.check_packed(p)
+    torch.cuda.synchronize()
+    wall_graph = time.perf_counter() - t0
+    graph_min = wgl.GRAPH_MIN_WAVES
+    wgl.GRAPH_MIN_WAVES = 1 << 62
+    try:
+        t0 = time.perf_counter()
+        eager = wgl.check_packed(p)
+        torch.cuda.synchronize()
+        wall_eager = time.perf_counter() - t0
+    finally:
+        wgl.GRAPH_MIN_WAVES = graph_min
+    lwaves = graphed.get("waves", 0)
+    print(f"ladder at real size, check_packed: {lwaves} waves, rungs "
+          f"{graphed.get('rungs')}; CUDA graphs {wall_graph:.3f} s "
+          f"({wall_graph / lwaves * 1e3:.3f} ms a wave), eager "
+          f"{wall_eager:.3f} s ({wall_eager / lwaves * 1e3:.3f} ms a "
+          f"wave); same dict: {graphed == eager}", flush=True)
+    if graphed != eager or graphed.get("engine") != "jnp-ladder":
+        fail(f"ladder with CUDA graphs {graphed} != eager {eager}")
+    lchecker = TPULinearizableChecker(cpu_cutoff=None)
+    ladder_cases = [
+        ("info-op history", gen_history(
+            random.Random(LADDER_SEED), n_procs=10, n_ops=60, values=4,
+            info_rate=0.25, dur_scale=6.0)),
+        ("12 concurrent writes, read 9", concurrent_writes_history(
+            12, read_val=9))]
+    for what, hist in ladder_cases:
+        t0 = time.perf_counter()
+        out = lchecker.check({}, hist)
+        wall_l = time.perf_counter() - t0
+        dfs = check_history(VersionedRegister(), hist)
+        print(f"ladder: {what}: valid?={out['valid?']} engine="
+              f"{out.get('engine')} rungs={out.get('rungs')} "
+              f"peak-frontier={out.get('peak-frontier')} waves="
+              f"{out.get('waves')} wall {wall_l:.3f} s; native DFS "
+              f"valid?={dfs['valid?']}", flush=True)
+        if out.get("engine") != "jnp-ladder" or out.get("rungs", 0) < 3 \
+                or out["valid?"] is not dfs["valid?"]:
+            fail(f"ladder on {what}: {out}")
+        p = wgl.pack_register_history(hist)
+        one_shot = wgl.check_packed(p)
+        state = None
+        while state is None or not state.done:
+            state = wgl.check_prefix(p, state, max_waves=64)
+        print(f"  check_prefix (64 waves a call) ends on the one-shot "
+              f"dict: {state.result == one_shot}", flush=True)
+        if state.result != one_shot:
+            fail(f"check_prefix on {what}: {state.result} != {one_shot}")
+    for read_val, f_max in [(1, 32), (9, 32), (9, None)]:
+        hist = concurrent_writes_history(16, read_val=read_val)
+        t0 = time.perf_counter()
+        out = TPULinearizableChecker(fallback=False, f_max=f_max).check(
+            {}, hist)
+        wall_s16 = time.perf_counter() - t0
+        print(f"spill: 16 concurrent writes, read {read_val}, f_max "
+              f"{f_max}: valid?={out['valid?']} spilled="
+              f"{out.get('spilled')} rungs={out.get('rungs')} "
+              f"peak-frontier={out.get('peak-frontier')} states="
+              f"{out.get('states')} wall {wall_s16:.3f} s", flush=True)
+        if out.get("spilled") is not True or \
+                out["valid?"] is not (read_val == 1):
+            fail(f"spill verdict {out}")
+
     print(json.dumps({"kernels": [{
         "name": "wgl_wave", "route": "cuda",
         "source": "jepsen_etcd_tpu_torch/csrc/wgl_wave.cu",
@@ -247,6 +572,13 @@ def main() -> None:
         "launches": launches, "max_abs_err": max_err,
         "ms": kern_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None}, {
+        "name": "indel_wave", "route": "cuda",
+        "source": "jepsen_etcd_tpu_torch/csrc/indel_wave.cu",
+        "replaces": "jepsen_etcd_tpu/ops/edit_distance.py:90",
+        "launches": watch_launches, "max_abs_err": ed_err,
+        "ms": b2_ms, "plain_ms": b2_plain_ms, "bound_ms": b2_bound_ms,
+        "bound_by": "bytes" if b2_bytes_ms >= b2_ops_ms else "operations",
         "library_ms": None}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

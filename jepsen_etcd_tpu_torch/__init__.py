@@ -1,4 +1,6 @@
-"""PyTorch/CUDA port of jepsen_etcd_tpu's linearizability checker.
+"""PyTorch/CUDA port of jepsen_etcd_tpu's checkers: register
+linearizability (the wave kernel, the capacity ladder and the spill
+BFS) and the watch checker (the edit-distance wavefront).
 
 The JAX package ``jepsen_etcd_tpu`` is the reference; this package keeps
 its module layout (``core/``, ``models/``, ``checkers/``, ``ops/``,

@@ -4,17 +4,11 @@ sound CPU fallback (the counterpart of the reference's
 routing constants and verdict labels).
 
 Binding analog of ``checker/linearizable`` (register.clj:110-112) with
-the search on the card (ops/wgl_mxu.py). Soundness contract: the kernel
-answers definitively only when its preconditions hold (window fits, no
-info ops, no frontier overflow); anything else falls back to the CPU
-oracle — the device path can be fast, it must never be wrong.
-
-Divergence from the reference: its capacity ladder and spill BFS
-(``_expand`` / ``_wgl_loop`` / ``_spill_bfs``) are not ported. Where the
-reference would climb the ladder, this checker goes straight to the
-reference's own DFS-first overflow ordering, and a DFS that exhausts
-its budget there gives ``{"valid?": "unknown", "reason": "ladder/spill
-not yet ported"}``.
+the search on the card: the wave kernel (ops/wgl_mxu.py), then the
+capacity ladder and the spill BFS (ops/wgl.py). Soundness contract: an
+engine answers definitively only when its preconditions hold; anything
+else falls back to the CPU oracle — the device path can be fast, it
+must never be wrong.
 """
 
 from __future__ import annotations
@@ -42,15 +36,19 @@ DFS_FIRST_MAX = 13_000
 
 
 class TPULinearizableChecker(Checker):
-    """``device`` is where the wave search runs: ``cuda`` unless the
-    caller passes another (``"cpu"`` runs its plain version)."""
+    """``device`` is where the search runs: ``cuda`` unless the caller
+    passes another (``"cpu"`` runs the wave kernel's plain version and
+    the ladder on the CPU). ``f_max`` set skips the wave kernel and
+    starts the ladder at that rung."""
 
     def __init__(self, model_fn=None, fallback: bool = True,
+                 f_max: Optional[int] = None,
                  cpu_cutoff: Optional[int] = CPU_CUTOFF,
                  dfs_first_max: Optional[int] = DFS_FIRST_MAX,
                  device=None):
         self.model_fn = model_fn or (lambda: VersionedRegister(0, None))
         self.fallback = fallback
+        self.f_max = f_max
         self.device = resolve_device(device)
         # fallback=False means "I want the kernel's answer", so the
         # size cutoff only applies when CPU routing is allowed at all
@@ -104,8 +102,7 @@ class TPULinearizableChecker(Checker):
             return wgl.pack_mutex_history
         return None
 
-    def _finalize(self, history, out: dict,
-                  band=(None, None, 0)) -> dict:
+    def _finalize(self, history, out: dict, pack, band) -> dict:
         """Post-process one kernel verdict into a checker result,
         attaching CPU counterexample diagnostics / fallback as needed."""
         if out["valid?"] is True:
@@ -121,25 +118,26 @@ class TPULinearizableChecker(Checker):
                     out[k] = cpu[k]
             return out
         if out.get("overflow"):
-            return self._overflow(history, out, band)
+            return self._overflow(history, pack, out)
         return self._fallback_after_band(
             history, out.get("reason", "unknown"),
             bool(out.get("blowup")), band[1], band[2])
 
-    def _overflow(self, history, out: dict, band) -> dict:
-        """Frontier overflow (or a shape outside the kernel): a DFS
-        needs only one witness path where the BFS carries the whole
-        frontier, so the CPU oracle goes first (skipped when the band
-        search already spent its budget). The reference's complete last
-        resort, the spill BFS, is not ported."""
-        cpu = self._fallback_after_band(
-            history, out.get("reason", "overflow"), False, band[1],
-            band[2])
+    def _overflow(self, history, pack, out: dict) -> dict:
+        """Top-rung frontier overflow: a DFS needs only one witness
+        path where the BFS carries the whole frontier, so the CPU oracle
+        goes first; the budgeted spill BFS, resumed from the frozen
+        frontier, is the complete last resort."""
+        resume = out.pop("_resume")
+        cpu = self._fallback(history, out.get("reason", "overflow"))
         if cpu["valid?"] != "unknown":
             return cpu
-        return {"valid?": "unknown", "reason": wgl.LADDER_NOT_PORTED,
-                "peak-frontier": out.get("peak-frontier"),
-                "checker": "tpu-wgl", "dfs-also-unknown": True}
+        out2 = wgl.spill_packed(pack, *resume)
+        # no diagnostics DFS here: the DFS just exhausted its budget
+        out2["checker"] = "tpu-wgl"
+        if out2["valid?"] == "unknown":
+            out2["dfs-also-unknown"] = True
+        return out2
 
     def _fallback_budget(self, blowup: bool) -> int:
         """The ONE definition of what _fallback spends: blowup gets the
@@ -188,8 +186,9 @@ class TPULinearizableChecker(Checker):
                 small_unknown, band_budget)
         if p.I > 0 and self.cpu_cutoff and small_unknown is None \
                 and len(history) > (self.dfs_first_max or 0):
-            # info-op histories can't run on the wave kernel, so the
-            # DFS-first band extends to ANY size when infos are present
+            # info-op histories can't run on the wave kernel and the
+            # ladder is slower than the DFS on them, so the DFS-first
+            # band extends to ANY size when infos are present
             cpu = check_history(self.model_fn(), history,
                                 max_configs=self.FALLBACK_MAX_CONFIGS)
             if cpu["valid?"] != "unknown":
@@ -197,6 +196,9 @@ class TPULinearizableChecker(Checker):
                 cpu["engine-route"] = "info-dfs-first"
                 return cpu
             small_unknown, band_budget = cpu, self.FALLBACK_MAX_CONFIGS
-        out = wgl.check_packed(p, device=self.device)
-        return self._finalize(history, out,
+        # with a fallback available, the spill BFS waits until the DFS
+        # has had its (cheaper) shot — see _overflow
+        out = wgl.check_packed(p, f_max=self.f_max,
+                               spill=not self.fallback, device=self.device)
+        return self._finalize(history, out, pack=p,
                               band=(None, small_unknown, band_budget))

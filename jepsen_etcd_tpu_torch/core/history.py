@@ -2,14 +2,15 @@
 
 A copy of ``History`` from the reference's ``core/history.py``:
 construction (with index assignment), the sequence protocol and the
-tagged JSONL round trip. The reference's SoA ``OpColumns`` view, the
-pairing helpers and the filters come with later slices.
+tagged JSONL round trip, and the filters the watch checker uses. The
+reference's SoA ``OpColumns`` view and the pairing helpers come with
+later slices.
 """
 
 from __future__ import annotations
 
 import json
-from typing import Any, Iterable, Iterator
+from typing import Any, Callable, Iterable, Iterator
 
 from .op import Op
 
@@ -46,6 +47,16 @@ class History:
 
     def __getitem__(self, i):
         return self._ops[i]
+
+    # -- filters (jepsen.history-style) -------------------------------------
+    def filter(self, pred: Callable[[Op], bool]) -> "History":
+        return History([o for o in self._ops if pred(o)])
+
+    def client_ops(self) -> "History":
+        return self.filter(lambda o: isinstance(o.get("process"), int))
+
+    def oks(self) -> "History":
+        return self.filter(lambda o: o.get("type") == "ok")
 
     # -- (de)serialization ---------------------------------------------------
     def to_jsonl(self) -> str:

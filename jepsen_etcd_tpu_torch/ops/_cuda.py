@@ -59,20 +59,39 @@ def build(name: str) -> str:
     return so
 
 
-def _wgl_lib() -> ctypes.CDLL:
+def _lib(name: str, signatures: dict) -> ctypes.CDLL:
+    """Build (once) and load ``csrc/<name>.cu``, with the argument types
+    of its C functions set from ``signatures`` (function -> (restype,
+    argtypes)); every library also exports ``<name>_error_string``."""
     with _lock:
-        lib = _libs.get("wgl_wave")
+        lib = _libs.get(name)
         if lib is None:
-            lib = ctypes.CDLL(build("wgl_wave"))
-            fn = lib.wgl_wave_launch
-            fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_int, ctypes.c_void_p]
-            lib.wgl_wave_error_string.restype = ctypes.c_char_p
-            lib.wgl_wave_error_string.argtypes = [ctypes.c_int]
-            _libs["wgl_wave"] = lib
+            lib = ctypes.CDLL(build(name))
+            signatures = dict(signatures)
+            signatures[f"{name}_error_string"] = (ctypes.c_char_p,
+                                                  [ctypes.c_int])
+            for fn, (restype, argtypes) in signatures.items():
+                getattr(lib, fn).restype = restype
+                getattr(lib, fn).argtypes = argtypes
+            _libs[name] = lib
         return lib
+
+
+def _check(lib: ctypes.CDLL, name: str, err: int) -> None:
+    if err != 0:
+        msg = getattr(lib, f"{name}_error_string")(err).decode()
+        raise RuntimeError(f"{name} launch failed: {msg} ({err})")
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_WGL = {"wgl_wave_launch": (_I, [_P, _P, _P, _I, _I, _I, _P])}
+_INDEL = {"indel_wave_launch": (_I, [_P, _I, _P, _I, _P, _P, _I, _P, _I,
+                                     _I, _P]),
+          "indel_wave_smem_optin": (_I, [_I])}
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def wgl_wave(tab: torch.Tensor, scal: torch.Tensor, out: torch.Tensor,
@@ -80,12 +99,36 @@ def wgl_wave(tab: torch.Tensor, scal: torch.Tensor, out: torch.Tensor,
     """Launch csrc/wgl_wave.cu on the current stream: tab [K, r_pad,
     TLANES], scal [K, r_pad, 8] -> out [K, 4], all int32 on one CUDA
     device (the caller checks shapes)."""
-    lib = _wgl_lib()
+    lib = _lib("wgl_wave", _WGL)
     with torch.cuda.device(tab.device):
-        stream = torch.cuda.current_stream(tab.device).cuda_stream
         err = lib.wgl_wave_launch(tab.data_ptr(), scal.data_ptr(),
                                   out.data_ptr(), tab.shape[0],
-                                  tab.shape[1], wk, stream)
-    if err != 0:
-        msg = lib.wgl_wave_error_string(err).decode()
-        raise RuntimeError(f"wgl_wave launch failed: {msg} ({err})")
+                                  tab.shape[1], wk, _stream(tab))
+    _check(lib, "wgl_wave", err)
+
+
+def indel_smem_optin(device: torch.device) -> int:
+    """Bytes of dynamic shared memory one block may opt in to."""
+    lib = _lib("indel_wave", _INDEL)
+    index = torch.device(device).index
+    got = lib.indel_wave_smem_optin(
+        torch.cuda.current_device() if index is None else index)
+    if got < 0:
+        raise RuntimeError("cudaDeviceGetAttribute failed")
+    return got
+
+
+def indel_wave(a: torch.Tensor, b: torch.Tensor, m: torch.Tensor,
+               out: torch.Tensor, scratch, threads: int) -> None:
+    """Launch csrc/indel_wave.cu on the current stream: a [n], b [K,
+    LB], m [K] -> out [K], all int32 on one CUDA device; ``scratch`` is
+    a [K, 3, n + 1] int32 tensor for the global-memory regime, or None
+    for the shared-memory one (the caller checks shapes and sizes)."""
+    lib = _lib("indel_wave", _INDEL)
+    with torch.cuda.device(a.device):
+        err = lib.indel_wave_launch(
+            a.data_ptr(), a.shape[0], b.data_ptr(), b.shape[1],
+            m.data_ptr(), out.data_ptr(), b.shape[0],
+            None if scratch is None else scratch.data_ptr(),
+            int(scratch is None), threads, _stream(a))
+    _check(lib, "indel_wave", err)

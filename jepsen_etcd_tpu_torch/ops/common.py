@@ -1,7 +1,15 @@
-"""Value encodings shared by the packer and the native oracle (a copy of
-the reference's ``ops/common.py`` minus its jax compile-cache hooks)."""
+"""Value encodings shared by the packer and the native oracle, and the
+size routing of the device ops (a copy of the reference's
+``ops/common.py`` minus its jax compile-cache hooks)."""
 
 from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from ..device import resolve_device
 
 
 class UnsupportedValue(Exception):
@@ -96,3 +104,20 @@ def as_version(v) -> int:
     if not -(2 ** 29) < iv < 2 ** 29:
         raise UnsupportedValue(f"version assertion {v!r} out of range")
     return iv
+
+
+def bucket(n: int, minimum: int = 128) -> int:
+    """Pad to the next power of two (min `minimum`)."""
+    return max(minimum, 1 << max(0, math.ceil(math.log2(max(1, n)))))
+
+
+def use_device(force_device: Optional[bool], n: int, cutoff: int,
+               device=None) -> Optional[torch.device]:
+    """Resolve the force_device tri-state against size: the device to
+    run on, or None for the host path. True demands the device, False
+    forces the host path, None picks the device when ``n >= cutoff``.
+    The device is ``resolve_device(device)``, so a card that is asked
+    for and missing raises."""
+    if force_device is False or (not force_device and n < cutoff):
+        return None
+    return resolve_device(device)

@@ -1,9 +1,14 @@
-"""Test helpers: a random register-history synthesizer (a copy of the
-reference's ``tests/test_wgl.py`` ``gen_history``), shared by the port's
-tests and ``chip_smoke.py``."""
+"""Test helpers shared by the port's tests and ``chip_smoke.py``: a
+random register-history synthesizer (a copy of the reference's
+``tests/test_wgl.py`` ``gen_history``), the reference's
+``_concurrent_writes_history`` (a frontier of C(n, n/2) states), a
+late impossible read that makes a long history invalid near its end
+(``impossible_read_at``), and a watch-history synthesizer with the op
+shape of the reference's ``workloads/watch.py``."""
 
 from __future__ import annotations
 
+import itertools
 import random
 
 from .core.history import History
@@ -99,3 +104,141 @@ def gen_history(rng: random.Random, n_procs=4, n_ops=20, values=3,
                             else v[1]
                 ops.append(Op(type="ok", process=p, f=f, value=v))
     return History(ops)
+
+
+def concurrent_writes_history(n=16, read_val=1, read_ver=None) -> History:
+    """n mutually-concurrent unversioned writes of the same value, then a
+    sequential read (the reference's ``tests/test_wgl.py``
+    ``_concurrent_writes_history``). Peak frontier C(n, n/2): 12,870
+    for n=16, past the ladder's top rung, so the spill BFS runs."""
+    ops = []
+    for p in range(n):
+        ops.append(Op(type="invoke", process=p, f="write", value=[None, 1]))
+    for p in range(n):
+        ops.append(Op(type="ok", process=p, f="write", value=[None, 1]))
+    ops.append(Op(type="invoke", process=n, f="read", value=[None, None]))
+    ops.append(Op(type="ok", process=n, f="read",
+                  value=[n if read_ver is None else read_ver, read_val]))
+    return History(ops)
+
+
+def impossible_read_at(history, frac: float) -> History:
+    """A copy of a register history whose first ok read with a version
+    at or past ``frac`` of its entries reads a version 1000 past the one
+    it saw, which no write makes: the search dies there, after it has
+    carried its frontier through most of the history."""
+    ops = [Op(o) for o in history]
+    for i in range(int(frac * len(ops)), len(ops)):
+        o = ops[i]
+        if o.type == "ok" and o.f == "read" and o.value[0] is not None:
+            ops[i] = Op({**o, "value": [o.value[0] + 1000, o.value[1]]})
+            return History(ops)
+    raise ValueError(f"no versioned ok read past {frac} of the history")
+
+
+def gen_watch_history(rng: random.Random, n_writers=5, n_watchers=5,
+                      n_writes=200, per_watch=500, info_rate=0.0,
+                      corrupt=None, corrupt_thread=0, gap=False,
+                      unequal=False, nonmonotonic=False,
+                      converge_timeout=False,
+                      recycle_watchers=False) -> History:
+    """A watch-workload history (``workloads/watch.py``): threads 0 ..
+    n_writers-1 write consecutive ints to one key, one revision per
+    applied write (the first at revision 2); threads n_writers .. each
+    watch the key with ``watch`` ops of about ``per_watch`` events
+    (value ``{"revision", "log", "revs"}``), then one ``final-watch``
+    that brings them to the last revision (value adds ``"gaps"``). A
+    write completes :info with probability ``info_rate`` (applied or not,
+    evens) and its thread's process becomes process + concurrency, as
+    the interpreter recycles crashed processes.
+
+    Knobs that break the history, on watcher ``corrupt_thread`` (an
+    index among the watchers): ``corrupt`` in {"drop", "reorder",
+    "duplicate"} edits its log at a random place; ``gap`` removes a run
+    of its events and records that window as a compaction gap (still
+    valid); ``unequal`` stops it one revision short (verdict unknown);
+    ``nonmonotonic`` / ``converge_timeout`` put the workload's
+    ``["nonmonotonic-watch", ...]`` / ``["converge-timeout"]`` error on
+    its final-watch. ``recycle_watchers`` gives every watcher a new
+    process after its first watch op, as a replaced client would."""
+    conc = n_writers + n_watchers
+    events = []                        # (time, seq, op)
+    seq = itertools.count()
+
+    def emit(t, **op):
+        events.append((t, next(seq), Op(time=t, **op)))
+
+    proc = list(range(conc))
+    applied = []                       # (value, revision, time)
+    rev = 1
+    for v in range(n_writes):
+        th = v % n_writers
+        t = 10 * v
+        emit(t, type="invoke", process=proc[th], f="write", value=v)
+        if rng.random() < info_rate:
+            emit(t + 5, type="info", process=proc[th], f="write", value=v,
+                 error="timeout")
+            proc[th] += conc
+            if rng.random() < 0.5:
+                rev += 1
+                applied.append((v, rev, t))
+        else:
+            rev += 1
+            applied.append((v, rev, t))
+            emit(t + 5, type="ok", process=proc[th], f="write", value=v)
+    t_end = 10 * n_writes
+    for w in range(n_watchers):
+        th = n_writers + w
+        seen = list(applied)
+        final_rev = rev
+        gaps = []
+        mine = w == corrupt_thread
+        if mine and unequal and seen:
+            final_rev = seen[-1][1] - 1
+            seen = [e for e in seen if e[1] <= final_rev]
+        if mine and gap and len(seen) > 4:
+            i = rng.randrange(1, len(seen) - 2)
+            j = rng.randrange(i + 1, len(seen) - 1)
+            gaps.append([seen[i - 1][1], seen[j - 1][1]])
+            seen = seen[:i] + seen[j:]
+        if mine and corrupt and len(seen) > 2:
+            i = rng.randrange(len(seen) - 1)
+            if corrupt == "drop":
+                del seen[i]
+            elif corrupt == "reorder":
+                seen[i], seen[i + 1] = seen[i + 1], seen[i]
+            elif corrupt == "duplicate":
+                seen.insert(i, seen[i])
+            else:
+                raise ValueError(f"unknown corruption {corrupt!r}")
+        n_watch = len(seen) // per_watch if per_watch else 0
+        cuts = sorted(rng.sample(range(1, len(seen)), n_watch)) \
+            if len(seen) > n_watch else []
+        start, last_rev, t = 0, 0, 0
+        for c in cuts + [None]:
+            part = seen[start:c]
+            final = c is None
+            f = "final-watch" if final else "watch"
+            t0 = t_end + 1 + w if final else max(t, 1)
+            t1 = t_end + 100 + w if final else part[-1][2] + 7
+            if part:
+                last_rev = part[-1][1]
+            value = {"revision": final_rev if final else last_rev,
+                     "log": [e[0] for e in part],
+                     "revs": [e[1] for e in part]}
+            extra = {}
+            if final:
+                value["gaps"] = gaps
+                if mine and nonmonotonic:
+                    extra["error"] = ["nonmonotonic-watch",
+                                      f"got event with revision {last_rev}"
+                                      f" but we last saw {last_rev + 1}"]
+                elif mine and converge_timeout:
+                    extra["error"] = ["converge-timeout"]
+            emit(t0, type="invoke", process=proc[th], f=f, value=None)
+            emit(t1, type="ok", process=proc[th], f=f, value=value, **extra)
+            if recycle_watchers and not final and start == 0:
+                proc[th] += conc
+            start, t = c, t1 + 1
+    events.sort(key=lambda e: (e[0], e[1]))
+    return History([op for _, _, op in events])

@@ -5,6 +5,7 @@ runs its wave search through the plain PyTorch version)."""
 import random
 
 import pytest
+import torch
 
 from jepsen_etcd_tpu.checkers.linearizable import \
     check_history as ref_check_history
@@ -22,7 +23,9 @@ from jepsen_etcd_tpu_torch.models import CASRegister, Mutex, \
 from jepsen_etcd_tpu_torch.ops import wgl
 from jepsen_etcd_tpu_torch.testing import gen_history as port_gen_history
 
-from test_wgl import gen_history, gen_mutex_history
+from test_wgl import _concurrent_writes_history, gen_history, \
+    gen_mutex_history
+from test_torch_fixtures import one_torch_thread  # noqa: F401
 
 
 def port(h) -> History:
@@ -119,24 +122,33 @@ def test_kernel_route_verdicts_match_reference():
     assert "mxu-wave" in engines
 
 
-def test_overflow_past_the_dfs_is_unknown_with_the_c2_reason(monkeypatch):
-    """Where the reference would climb its capacity ladder and the DFS
-    also gives up, the port says so instead of guessing."""
-    h = port(gen_history(random.Random(4), n_procs=3, n_ops=30))
-    monkeypatch.setattr(wgl, "check_packed", lambda p, device=None: {
-        "valid?": "unknown", "overflow": True,
-        "reason": "mxu frontier overflow (capacity 32)"})
-    c = TPULinearizableChecker(cpu_cutoff=None, device="cpu")
-    monkeypatch.setattr(c, "FALLBACK_MAX_CONFIGS", 1)
-    out = c.check({}, h)
-    assert out["valid?"] == "unknown"
-    assert out["reason"] == wgl.LADDER_NOT_PORTED
-    assert out["dfs-also-unknown"] is True
+@pytest.mark.parametrize("read_val,f_max", [(1, 32), (9, None), (9, 32)])
+def test_overflow_past_the_dfs_spills_like_the_reference(monkeypatch,
+                                                         read_val, f_max):
+    """Past the ladder's top rung the DFS goes first; when it exhausts
+    its budget the spill BFS resumes the frozen frontier and gives the
+    reference's definite verdict. (A witness within the wave kernel's
+    32 slots answers before any overflow, so the valid case starts the
+    ladder at f_max=32, as the reference does off the TPU.)"""
+    rh = _concurrent_writes_history(16, read_val=read_val)
+    ref_c = RefChecker(cpu_cutoff=None, f_max=f_max)
+    got_c = TPULinearizableChecker(cpu_cutoff=None, f_max=f_max,
+                                   device="cpu")
+    for c in (ref_c, got_c):
+        monkeypatch.setattr(c, "FALLBACK_MAX_CONFIGS", 1)
+    ref = ref_c.check({}, rh)
+    got = got_c.check({}, port(rh))
+    assert got == ref
+    assert got["valid?"] is (read_val == 1)
+    assert got["spilled"] is True and got["checker"] == "tpu-wgl"
     # with a DFS budget that suffices, the DFS answers as in the reference
-    monkeypatch.setattr(c, "FALLBACK_MAX_CONFIGS", 5_000_000)
-    out = c.check({}, h)
-    assert out["valid?"] is True and out["checker"] == "cpu-oracle"
-    assert out["tpu-fallback-reason"].startswith("mxu frontier overflow")
+    for c in (ref_c, got_c):
+        monkeypatch.setattr(c, "FALLBACK_MAX_CONFIGS", 5_000_000)
+    ref = ref_c.check({}, rh)
+    got = got_c.check({}, port(rh))
+    assert got["valid?"] == ref["valid?"] is (read_val == 1)
+    assert got["checker"] == ref["checker"] == "cpu-oracle"
+    assert got["tpu-fallback-reason"] == ref["tpu-fallback-reason"]
 
 
 def test_info_op_histories_route_like_the_reference():

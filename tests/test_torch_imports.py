@@ -23,8 +23,10 @@ PORT_MODULES = [
     "jepsen_etcd_tpu_torch.checkers.core",
     "jepsen_etcd_tpu_torch.checkers.linearizable",
     "jepsen_etcd_tpu_torch.checkers.tpu_linearizable",
+    "jepsen_etcd_tpu_torch.checkers.watch",
     "jepsen_etcd_tpu_torch.ops",
     "jepsen_etcd_tpu_torch.ops.common",
+    "jepsen_etcd_tpu_torch.ops.edit_distance",
     "jepsen_etcd_tpu_torch.ops.wgl",
     "jepsen_etcd_tpu_torch.ops.wgl_mxu",
     "jepsen_etcd_tpu_torch.ops._cuda",
@@ -95,24 +97,47 @@ def _tiny_pack():
     return h, wgl.pack_register_history(h)
 
 
+def _watch_history():
+    from jepsen_etcd_tpu_torch.core.history import History
+    from jepsen_etcd_tpu_torch.core.op import Op
+    log = list(range(200))
+    return History([Op(type=t, process=p, f="watch",
+                       value=None if t == "invoke" else
+                       {"revision": 201, "log": log})
+                    for p in (0, 1) for t in ("invoke", "ok")])
+
+
 @pytest.mark.parametrize("entry", ["resolve_device", "checker",
-                                   "check_packed", "check_packed_mxu",
-                                   "check_packed_batch_mxu"])
+                                   "check_packed", "check_packed_ladder",
+                                   "check_prefix", "check_packed_mxu",
+                                   "check_packed_batch_mxu",
+                                   "watch_checker", "edit_distance_batch"])
 def test_entry_points_raise_without_cuda_unless_cpu(no_cuda, entry):
     from jepsen_etcd_tpu_torch.checkers.tpu_linearizable import \
         TPULinearizableChecker
+    from jepsen_etcd_tpu_torch.checkers.watch import WatchChecker
     from jepsen_etcd_tpu_torch.device import resolve_device
-    from jepsen_etcd_tpu_torch.ops import wgl, wgl_mxu
+    from jepsen_etcd_tpu_torch.ops import edit_distance, wgl, wgl_mxu
     h, p = _tiny_pack()
     call = {
         "resolve_device": lambda dev: resolve_device(dev),
         "checker": lambda dev: TPULinearizableChecker(
             cpu_cutoff=None, device=dev).check({}, h),
         "check_packed": lambda dev: wgl.check_packed(p, device=dev),
+        "check_packed_ladder": lambda dev: wgl.check_packed(
+            p, f_max=32, device=dev),
+        "check_prefix": lambda dev: wgl.check_prefix(
+            p, device=dev).result,
         "check_packed_mxu": lambda dev: wgl_mxu.check_packed_mxu(
             p, device=dev),
         "check_packed_batch_mxu": lambda dev: wgl_mxu.check_packed_batch_mxu(
-            [p], device=dev),
+            [p], device=dev)[0],
+        "watch_checker": lambda dev: WatchChecker(device=dev).check(
+            {"concurrency": 2}, _watch_history()),
+        "edit_distance_batch": lambda dev: {
+            "valid?": edit_distance.edit_distance_batch(
+                [1, 2, 3], [[1, 3]], force_device=True,
+                device=dev) == [1]},
     }[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call(None)
@@ -121,8 +146,6 @@ def test_entry_points_raise_without_cuda_unless_cpu(no_cuda, entry):
     got = call("cpu")
     if entry == "resolve_device":
         assert got == torch.device("cpu")
-    elif entry == "check_packed_batch_mxu":
-        assert got[0]["valid?"] is True
     else:
         assert got["valid?"] is True
 

@@ -20,6 +20,8 @@ from jepsen_etcd_tpu_torch.core.history import History
 from jepsen_etcd_tpu_torch.ops import wgl, wgl_mxu
 
 from test_wgl import gen_history
+from test_torch_fixtures import one_torch_thread  # noqa: F401
+
 
 #: fuzz shapes per target window width: (n_procs, n_ops, dur_scale)
 SHAPES = {32: ((2, 6), (8, 48), 1.0),

@@ -20,6 +20,7 @@ from jepsen_etcd_tpu_torch.core.history import History
 from jepsen_etcd_tpu_torch.ops import wgl, wgl_mxu
 
 from test_torch_pack import fuzz
+from test_torch_fixtures import one_torch_thread  # noqa: F401
 
 
 def _tables(packs, r_pad, wk, device="cpu"):
