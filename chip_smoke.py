@@ -8,12 +8,16 @@ PyTorch version on the card, drives the port's paths and shows that
 each launched its kernel: single-key linearizability checking of a
 27,000-entry register history through ``TPULinearizableChecker`` (kernel
 wgl_wave), the watch checker on five watchers' logs of 12,000 values
-each (kernel indel_wave), and the capacity ladder (PyTorch ops on the
+each (kernel indel_wave), the capacity ladder (PyTorch ops on the
 card, at real size on a 26,992-entry history whose wave-kernel search
 overflows, its waves replayed from CUDA graphs and held against the
-eager loop), the spill BFS and ``check_prefix``. Prints the card's
-name and power limit, a ``{"kernels": [...]}`` line, and last
-``{"ok": true, "device": ...}``.
+eager loop), the spill BFS and ``check_prefix``, and the keyed register
+check: the register workload's checker, ``Independent(Compose({linear,
+session}))``, on 32 keys x 2,000 ops (wgl_wave's batched launch, once on
+the card's one lane and once split over two lanes of it, and the
+batched ladder for the faulted keys). Prints the card's name and power
+limit, a ``{"kernels": [...]}`` line, and last ``{"ok": true, "device":
+...}``.
 Exits non-zero, with no result line, when CUDA is unavailable or any
 phase fails. Imports nothing of JAX or of the JAX package.
 """
@@ -23,6 +27,7 @@ from __future__ import annotations
 import json
 import os
 import random
+import statistics
 import subprocess
 import sys
 import time
@@ -57,6 +62,14 @@ LADDER_BIG_PROCS, LADDER_BIG_AT = 8, 0.9
 #: dur_scale=6.0) of a valid info-op history whose frontier peaks at 270:
 #: the ladder climbs 32 -> 128 -> 256 -> 512
 LADDER_SEED = 40
+#: the keyed register cell (testing.keyed_register_history): 32 keys of
+#: 2,000 ops, 10 processes a key (the reference's register test with
+#: --ops-per-key 2000, 2n threads a key on 5 nodes). Keys 3, 11, 19 and
+#: 27 complete 1 % of their ops :info (the wave kernel cannot take them;
+#: 3 and 11 share a batched ladder group, 19 and 27 climb alone), key 7
+#: misreports some observations
+KEYED_KEYS, KEYED_OPS, KEYED_PROCS, KEYED_SEED = 32, 2_000, 10, 2026
+KEYED_FAULTED, KEYED_INFO_RATE, KEYED_CORRUPTED = (3, 11, 19, 27), 0.01, (7,)
 
 
 def fail(msg: str) -> None:
@@ -73,7 +86,6 @@ def card_line() -> str:
 
 def cuda_ms(fn, reps: int) -> float:
     """Median device time of one call (CUDA events), after a warm-up."""
-    import statistics
     import torch
     fn()
     torch.cuda.synchronize()
@@ -89,18 +101,18 @@ def cuda_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def tables_for(packs, dev):
-    """(tab, scal, wk) for packs sharing one (r_pad, wk) group."""
+def tables_for(packs, dev, k_pad=None):
+    """(tab, scal, wk) for packs sharing one (r_pad, wk) group, padded
+    to ``k_pad`` keys (all-zero padding keys) when given."""
     import numpy as np
     import torch
     from jepsen_etcd_tpu_torch.ops import wgl, wgl_mxu
     wk = packs[0].w
     r_pad = max(max(wgl.bucket(p.R), wgl_mxu.TSUB) for p in packs)
-    per = [wgl_mxu.pack_perop(p, r_pad) for p in packs]
-    i32 = torch.from_numpy(np.stack([a for a, _ in per])).to(dev)
-    u16 = torch.from_numpy(
-        np.stack([b for _, b in per]).astype(np.int32)).to(dev)
-    tab, scal = wgl_mxu.build_tables(i32, u16, r_pad, wk)
+    i32, u16 = wgl_mxu.pack_perop_batch(packs, r_pad, k_pad)
+    tab, scal = wgl_mxu.build_tables(
+        torch.from_numpy(i32).to(dev),
+        torch.from_numpy(u16.astype(np.int32)).to(dev), r_pad, wk)
     return tab, scal, wk
 
 
@@ -117,6 +129,73 @@ def hold(tab, scal, wk, what: str) -> int:
     if err != 0:
         fail(f"wgl_wave disagrees with its plain version on {what}")
     return err
+
+
+def wgl_bound(waves: int, row_bytes: int, keys: int, wk: int):
+    """(bound, bytes_ms, ops_ms) of wave searches that run ``waves``
+    waves in all over ``keys`` keys: one table row and one scal row read
+    per wave run and 16 B written per key; 64 operations per candidate
+    per wave."""
+    from jepsen_etcd_tpu_torch.ops import wgl_mxu
+    bytes_ms = (waves * row_bytes + 16 * keys) / HBM_BYTES_PER_S * 1e3
+    ops_ms = (waves * wgl_mxu.F * wk * WGL_OPS_PER_CANDIDATE
+              / ALU32_OPS_PER_S * 1e3)
+    return max(bytes_ms, ops_ms), bytes_ms, ops_ms
+
+
+def lanes_ms(tab, scal, wk: int, n_lanes: int, reps: int) -> float:
+    """Median device time of one wave search whose keys split evenly
+    over ``n_lanes`` streams of the card: CUDA events from a common
+    start to the last lane's end, after a warm-up."""
+    import torch
+    from jepsen_etcd_tpu_torch.ops import wgl_mxu
+    per = tab.shape[0] // n_lanes
+    streams = [torch.cuda.Stream() for _ in range(n_lanes)]
+
+    def once() -> float:
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        ends = []
+        for lane, stream in enumerate(streams):
+            stream.wait_event(start)
+            with torch.cuda.stream(stream):
+                wgl_mxu.wave_search(tab[lane * per:(lane + 1) * per],
+                                    scal[lane * per:(lane + 1) * per], wk)
+                end = torch.cuda.Event(enable_timing=True)
+                end.record(stream)
+                ends.append(end)
+        torch.cuda.synchronize()
+        return max(start.elapsed_time(e) for e in ends)
+
+    once()
+    return statistics.median(once() for _ in range(reps))
+
+
+class GpuBusy:
+    """The card's utilization (nvidia-smi ``utilization.gpu``: the share
+    of each sample period in which a kernel ran) sampled every 100 ms
+    while the block runs; ``share`` is their mean, None when nvidia-smi
+    gave no samples."""
+
+    def __enter__(self):
+        self.share = None
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "-i", "0", "--query-gpu=utilization.gpu",
+             "--format=csv,noheader,nounits", "-lms", "100"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        try:
+            out, _ = self.proc.communicate(timeout=30)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            out, _ = self.proc.communicate()
+        samples = [int(x) for x in out.split() if x.isdigit()]
+        if samples:
+            self.share = sum(samples) / len(samples) / 100
+        return False
 
 
 def watch_inputs(history, concurrency: int, dev, stages=None):
@@ -192,6 +271,238 @@ def hold_indel(a, b, m, what: str, global_scratch=False) -> int:
     if err != 0:
         fail(f"indel_wave disagrees with its plain version on {what}")
     return err
+
+
+def keyed_register_check(card: str) -> list:
+    """The keyed register cell through the register workload's checker,
+    ``Independent(Compose({linear, session}))``: every key's verdict
+    against the native DFS, the routes the keys take, the wave kernel's
+    launches (one per (r_pad, wk) group on the card's one lane, two when
+    the batch is split over two lanes of it: same result), the check's
+    stages and walls, and wgl_wave's batched launch held exactly against
+    two lanes and its plain version. Returns the kernels line's entries
+    for the batched and the sharded launch."""
+    import numpy as np
+    import torch
+    from jepsen_etcd_tpu_torch.checkers import (
+        SessionGuarantees, TPULinearizableChecker, compose,
+        independent_checker)
+    from jepsen_etcd_tpu_torch.checkers.linearizable import check_history
+    from jepsen_etcd_tpu_torch.models import VersionedRegister
+    from jepsen_etcd_tpu_torch.ops import wgl, wgl_mxu
+    from jepsen_etcd_tpu_torch.testing import keyed_register_history
+
+    dev0 = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    h = keyed_register_history(KEYED_KEYS, KEYED_OPS, KEYED_PROCS,
+                               KEYED_SEED, KEYED_FAULTED, KEYED_INFO_RATE,
+                               KEYED_CORRUPTED)
+    print(f"keyed register cell: {KEYED_KEYS} keys x {KEYED_OPS} ops, "
+          f"{len(h)} entries, made in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    linear = TPULinearizableChecker()
+    checker = independent_checker(compose({
+        "linear": linear, "session": SessionGuarantees()}))
+    one_lane = wgl_mxu.batch_lanes
+
+    def drive(lanes):
+        """One keyed check with the launch lanes substituted; the
+        kernel's launch count is read around it."""
+        wgl_mxu.batch_lanes = lanes
+        try:
+            torch.cuda.synchronize()
+            wgl_mxu.LAUNCHES = 0
+            t0 = time.perf_counter()
+            out = checker.check({}, h)
+            torch.cuda.synchronize()
+            return out, wgl_mxu.LAUNCHES, time.perf_counter() - t0
+        finally:
+            wgl_mxu.batch_lanes = one_lane
+
+    res, launches, wall = drive(one_lane)
+    res2, launches2, wall2 = drive(lambda device=None: [dev0, dev0])
+
+    # the routes the keys must take, from their packs
+    subs = h.split_by_key()
+    packs = wgl.pack_register_histories_batched(subs)
+    b1_keys = [k for k in subs if wgl_mxu.supported(packs[k])]
+    groups = {(max(wgl.bucket(packs[k].R), wgl_mxu.TSUB), packs[k].w)
+              for k in b1_keys}
+    # the other keys ride the ladder: a key alone in its group_key climbs
+    # it from rung 32; a group of several runs the batched rung at 128,
+    # where a key that overflows climbs on alone from F_MAX
+    rest = [k for k in subs if k not in b1_keys]
+    shared = [wgl.group_key(packs[k]) for k in rest]
+    grouped = [k for k, g in zip(rest, shared) if shared.count(g) > 1]
+    lone = [k for k, g in zip(rest, shared) if shared.count(g) == 1]
+    lin = {k: r["linear"] for k, r in res["results"].items()}
+    ses = {k: r["session"] for k, r in res["results"].items()}
+    engines = {}
+    for k in subs:
+        engines.setdefault(str(lin[k].get("engine")), []).append(k)
+        dfs = check_history(VersionedRegister(), subs[k])
+        if lin[k]["valid?"] is not dfs["valid?"]:
+            fail(f"keyed cell, key {k}: {lin[k]} but native DFS {dfs}")
+    batched = [k for k in subs if lin[k].get("batched")]
+    climbed = [k for k in grouped if k not in batched]
+    print(f"keyed check: valid?={res['valid?']} wall {wall:.3f} s, "
+          f"wgl_wave launches {launches} for {len(groups)} (r_pad, wk) "
+          f"group(s) of {len(b1_keys)} keys; engines {engines}; ladder "
+          f"groups of several keys {grouped}: batched {batched}, "
+          f"overflowed the batched rung {climbed}; alone on the ladder "
+          f"{lone}; every key's verdict = native DFS", flush=True)
+    shown = ("valid?", "engine", "batched", "rungs", "waves",
+             "peak-frontier", "checker")
+    for k in list(KEYED_FAULTED) + list(KEYED_CORRUPTED):
+        fields = {f: lin[k].get(f) for f in shown}
+        print(f"  key {k}: {len(subs[k])} entries R={packs[k].R} "
+              f"I={packs[k].I} info_dims={wgl.info_dims(packs[k])} "
+              f"linear={fields} diagnostics="
+              f"{'op' in lin[k] or 'error' in lin[k]} "
+              f"session={ses[k]['valid?']}", flush=True)
+    print(f"keyed check over two lanes of the card: wall {wall2:.3f} s, "
+          f"wgl_wave launches {launches2}, same result: {res2 == res}",
+          flush=True)
+    if res["valid?"] is not False:
+        fail(f"keyed check merged verdict {res['valid?']}")
+    for k in KEYED_CORRUPTED:
+        if lin[k]["valid?"] is not False or not (
+                "op" in lin[k] or "error" in lin[k]):
+            fail(f"corrupted key {k}: {lin[k]}")
+    if sorted(engines.get("mxu-wave", [])) != sorted(b1_keys):
+        fail(f"wave-kernel keys {b1_keys}, engines {engines}")
+    if not batched or not set(batched) <= set(grouped) or not lone or \
+            any(lin[k].get("engine") != "jnp-ladder" for k in lone + climbed):
+        fail(f"ladder keys: grouped {grouped}, batched {batched}, lone "
+             f"{lone}: { {k: lin[k] for k in rest} }")
+    if any(ses[k]["valid?"] is not True for k in subs
+           if k not in KEYED_CORRUPTED):
+        fail(f"session verdicts {ses}")
+    if launches != len(groups) or launches2 != 2 * len(groups):
+        fail(f"wgl_wave launches {launches} / {launches2} for "
+             f"{len(groups)} group(s)")
+    if res2 != res:
+        fail("the keyed check over two lanes differs from one lane")
+
+    # the check's stages, one by one on the host clock, each ending in
+    # a synchronization
+    stages = {}
+    t0 = time.perf_counter()
+    subs = h.split_by_key()
+    stages["split"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    packs = wgl.pack_register_histories_batched(subs)
+    stages["pack"] = time.perf_counter() - t0
+    if len(groups) != 1:
+        fail(f"the keyed cell's wave-kernel keys form {groups}")
+    (r_pad, wk), = groups
+    b1 = [packs[k] for k in b1_keys]
+    # the wave kernel's stage as check_batch pays it, median of 11 calls
+    # each, on the card's one lane and split over two lanes of it:
+    # "launch" is launch_packed_batch_mxu (pack_perop_batch, the copies
+    # to the card, build_tables and the launches, on the lanes' streams,
+    # not waited for), "readback" the wait and the copy back
+    rows = {}
+    for name, lanes in (("one lane", one_lane),
+                        ("two lanes", lambda device=None: [dev0, dev0])):
+        wgl_mxu.batch_lanes = lanes
+        launch_s, read_s = [], []
+        try:
+            for _ in range(11):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                launched = wgl_mxu.launch_packed_batch_mxu(b1)
+                t1 = time.perf_counter()
+                rows[name] = wgl_mxu.readback(launched)[0][1]
+                launch_s.append(t1 - t0)
+                read_s.append(time.perf_counter() - t1)
+        finally:
+            wgl_mxu.batch_lanes = one_lane
+        stages[f"launch, {name}"] = statistics.median(launch_s)
+        stages[f"readback, {name}"] = statistics.median(read_s)
+    outs = {k: wgl_mxu._decode(rows["one lane"][j], packs[k])
+            for j, k in enumerate(b1_keys)}
+    # the ladder, one group_key group at a time (as check_packed_batch
+    # runs them)
+    ladder_groups: dict = {}
+    for k in rest:
+        ladder_groups.setdefault(wgl.group_key(packs[k]), []).append(k)
+    for keys in ladder_groups.values():
+        t0 = time.perf_counter()
+        outs.update(zip(keys, wgl.check_packed_batch(
+            [packs[k] for k in keys])))
+        torch.cuda.synchronize()
+        stages[f"ladder {keys}"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for k in subs:
+        linear._finalize(subs[k], outs[k], pack=packs[k],
+                         band=(None, None, 0))
+    stages["finalize"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for k in subs:
+        SessionGuarantees().check({}, subs[k])
+    stages["session"] = time.perf_counter() - t0
+    print("keyed check stages (s): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in stages.items()), flush=True)
+
+    # the whole check, repeated, with the card's utilization sampled
+    walls = []
+    with GpuBusy() as busy:
+        for _ in range(11):
+            t0 = time.perf_counter()
+            checker.check({}, h)
+            walls.append(time.perf_counter() - t0)
+    walls.sort()
+    wmed, wp90 = walls[5], walls[9]
+
+    # wgl_wave's batched launch at the cell's shape: device time alone,
+    # and held against two lanes of the card and the plain version
+    k_pad = wgl_mxu._batch_geometry(len(b1), 1)[0]
+    tab, scal, _ = tables_for(b1, dev0, k_pad)
+    got = wgl_mxu.wave_search(tab, scal, wk).cpu()
+    b1_ms = cuda_ms(lambda: wgl_mxu.wave_search(tab, scal, wk), 11)
+    two_ms = lanes_ms(tab, scal, wk, 2, 11)
+    one, two = rows["one lane"], rows["two lanes"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = wgl_mxu.wave_search_reference(tab, scal, wk)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    ref = ref.cpu().numpy()
+    err = int(np.abs(got.numpy().astype(np.int64) - ref).max())
+    err_one = int(np.abs(one.astype(np.int64) - ref).max())
+    err_two = int(np.abs(two.astype(np.int64) - one).max())
+    waves = int(ref[:len(b1), 3].sum())
+    bound, bytes_ms, ops_ms = wgl_bound(
+        waves, (tab.shape[2] + scal.shape[2]) * 4, len(b1), wk)
+    idle = "not measured" if busy.share is None else f"{1 - busy.share:.3f}"
+    print(f"keyed check timing on {card}: wall over {len(walls)} runs "
+          f"median {wmed:.4f} s, p90 {wp90:.4f} s; device idle share "
+          f"{idle} (1 - mean nvidia-smi utilization over the runs; "
+          f"1 - B1 / median check = {1 - b1_ms / 1e3 / wmed:.3f}); "
+          f"wgl_wave batched {len(b1)} keys (k_pad {tab.shape[0]}, r_pad "
+          f"{r_pad}) {b1_ms:.3f} ms, over two lanes of the card "
+          f"{two_ms:.3f} ms, plain {plain_ms:.1f} ms, {waves} waves in "
+          f"all, bound {bound:.4f} ms (bytes {bytes_ms:.4f} ms, "
+          f"operations {ops_ms:.4f} ms); max_abs_err launch/plain {err}, "
+          f"one lane/plain {err_one}, two lanes/one lane {err_two}",
+          flush=True)
+    if err or err_one or err_two:
+        fail("wgl_wave's batched launch disagrees across lanes or with "
+             "its plain version")
+    entry = {"route": "cuda",
+             "source": "jepsen_etcd_tpu_torch/csrc/wgl_wave.cu",
+             "plain_ms": plain_ms, "bound_ms": bound,
+             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+             "library_ms": None}
+    return [{"name": "wgl_wave_batch",
+             "replaces": "jepsen_etcd_tpu/ops/wgl_mxu.py:862",
+             "launches": launches, "max_abs_err": max(err, err_one),
+             "ms": b1_ms, **entry},
+            {"name": "wgl_wave_sharded",
+             "replaces": "jepsen_etcd_tpu/ops/wgl_mxu.py:902",
+             "launches": launches2, "max_abs_err": err_two,
+             "ms": two_ms, **entry}]
 
 
 def main() -> None:
@@ -335,19 +646,13 @@ def main() -> None:
     t_pack = stages["pack"]
     btab, bscal, bwk = tables_for(batch, dev)
     batch_ms = cuda_ms(lambda: wgl_mxu.wave_search(btab, bscal, bwk), 21)
-    # the batch's bound, counted as the single key's below: per key, one
-    # table row and one scal row read per wave run and 16 B written;
-    # 64 operations per candidate per wave
     bwaves = int(wgl_mxu.wave_search(btab, bscal, bwk)[:, 3].sum())
-    brow_bytes = (btab.shape[2] + bscal.shape[2]) * 4
-    bbytes_ms = (bwaves * brow_bytes + 16 * len(batch)) \
-        / HBM_BYTES_PER_S * 1e3
-    bops_ms = (bwaves * wgl_mxu.F * bwk * WGL_OPS_PER_CANDIDATE
-               / ALU32_OPS_PER_S * 1e3)
+    bbound, bbytes_ms, bops_ms = wgl_bound(
+        bwaves, (btab.shape[2] + bscal.shape[2]) * 4, len(batch), bwk)
     print(f"batch of {len(batch)} keys (r_pad {btab.shape[1]}): one "
           f"launch {batch_ms:.3f} ms, {bwaves} waves in all, bound "
-          f"{max(bbytes_ms, bops_ms):.4f} ms (bytes {bbytes_ms:.4f} ms, "
-          f"operations {bops_ms:.4f} ms)", flush=True)
+          f"{bbound:.4f} ms (bytes {bbytes_ms:.4f} ms, operations "
+          f"{bops_ms:.4f} ms)", flush=True)
     kern_ms = cuda_ms(lambda: wgl_mxu.wave_search(tab, scal, wk), 21)
     # end-to-end: the whole check, repeated (median and p90 of 110)
     walls = []
@@ -361,6 +666,33 @@ def main() -> None:
           f"{wall_med:.4f} s, p90 {wall_p90:.4f} s; device idle share "
           f"{1 - kern_ms / 1e3 / wall_med:.3f} (1 - kernel / median "
           f"check)", flush=True)
+    # pack_register_history (the batched packer) against the per-key
+    # packer it took over from: each alone (11 calls) and the whole
+    # check with each (21 runs), interleaved, alternating which goes
+    # first
+    packers = {"batched": wgl.pack_register_history,
+               "per-key": wgl._pack_reference}
+    pack_s = {name: [] for name in packers}
+    check_s = {name: [] for name in packers}
+    for i in range(21):
+        for name in sorted(packers, reverse=i % 2 == 1):
+            if i < 11:
+                t0 = time.perf_counter()
+                packers[name](h)
+                pack_s[name].append(time.perf_counter() - t0)
+            wgl.pack_register_history = packers[name]
+            try:
+                t0 = time.perf_counter()
+                checker.check({}, h)
+                check_s[name].append(time.perf_counter() - t0)
+            finally:
+                wgl.pack_register_history = packers["batched"]
+    print(f"register packers on {card}: " + "; ".join(
+        f"{name}: pack median {statistics.median(pack_s[name]):.4f} s "
+        f"[{min(pack_s[name]):.4f}-{max(pack_s[name]):.4f}], check median "
+        f"{statistics.median(check_s[name]):.4f} s "
+        f"[{min(check_s[name]):.4f}-{max(check_s[name]):.4f}]"
+        for name in packers), flush=True)
     t0 = time.perf_counter()
     ref = wgl_mxu.wave_search_reference(tab, scal, wk)
     torch.cuda.synchronize()
@@ -371,11 +703,8 @@ def main() -> None:
     if err != 0:
         fail("wgl_wave disagrees with its plain version at full size")
     waves = int(got[0, 3])
-    row_bytes = (tab.shape[2] + scal.shape[2]) * 4
-    bytes_ms = (waves * row_bytes + 16) / HBM_BYTES_PER_S * 1e3
-    ops_ms = (waves * wgl_mxu.F * wk * WGL_OPS_PER_CANDIDATE
-              / ALU32_OPS_PER_S * 1e3)
-    bound_ms = max(bytes_ms, ops_ms)
+    bound_ms, bytes_ms, ops_ms = wgl_bound(
+        waves, (tab.shape[2] + scal.shape[2]) * 4, 1, wk)
     print(f"main path timing on {card}: check wall {wall_s:.3f} s "
           f"(pack {t_pack:.3f} s), kernel {kern_ms:.3f} ms, plain "
           f"{plain_ms:.1f} ms, waves {waves} "
@@ -565,6 +894,9 @@ def main() -> None:
                 out["valid?"] is not (read_val == 1):
             fail(f"spill verdict {out}")
 
+    # -- 7. the keyed register check ----------------------------------
+    batch_entries = keyed_register_check(card)
+
     print(json.dumps({"kernels": [{
         "name": "wgl_wave", "route": "cuda",
         "source": "jepsen_etcd_tpu_torch/csrc/wgl_wave.cu",
@@ -579,7 +911,7 @@ def main() -> None:
         "launches": watch_launches, "max_abs_err": ed_err,
         "ms": b2_ms, "plain_ms": b2_plain_ms, "bound_ms": b2_bound_ms,
         "bound_by": "bytes" if b2_bytes_ms >= b2_ops_ms else "operations",
-        "library_ms": None}]}), flush=True)
+        "library_ms": None}] + batch_entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -13,6 +13,7 @@ must never be wrong.
 
 from __future__ import annotations
 
+import functools
 import logging
 from typing import Optional
 
@@ -38,8 +39,9 @@ DFS_FIRST_MAX = 13_000
 class TPULinearizableChecker(Checker):
     """``device`` is where the search runs: ``cuda`` unless the caller
     passes another (``"cpu"`` runs the wave kernel's plain version and
-    the ladder on the CPU). ``f_max`` set skips the wave kernel and
-    starts the ladder at that rung."""
+    the ladder on the CPU). With no device named, ``check_batch``
+    spreads its wave-kernel launches over every visible card. ``f_max``
+    set skips the wave kernel and starts the ladder at that rung."""
 
     def __init__(self, model_fn=None, fallback: bool = True,
                  f_max: Optional[int] = None,
@@ -50,6 +52,8 @@ class TPULinearizableChecker(Checker):
         self.fallback = fallback
         self.f_max = f_max
         self.device = resolve_device(device)
+        # the batched launch's lanes: the named device, or every card
+        self.lanes_device = device
         # fallback=False means "I want the kernel's answer", so the
         # size cutoff only applies when CPU routing is allowed at all
         self.cpu_cutoff = cpu_cutoff if fallback else None
@@ -64,15 +68,17 @@ class TPULinearizableChecker(Checker):
     FALLBACK_MAX_CONFIGS = 5_000_000
 
     def _small_history_check(
-            self, history
+            self, history, band: Optional[int] = None
     ) -> tuple[Optional[dict], Optional[dict], int]:
         """Size-cutoff routing: below CPU_CUTOFF the native DFS goes
-        first; up to the mid-size band it still goes first with a
+        first; up to the mid-size band (``band``, by default the larger
+        of the cutoff and DFS_FIRST_MAX) it still goes first with a
         size-scaled budget. Returns (result, unknown, budget): result is
         the definitive answer or None; unknown carries a
         budget-exhausted verdict with the budget it spent."""
         n = len(history)
-        band = max(self.cpu_cutoff or 0, self.dfs_first_max or 0)
+        if band is None:
+            band = max(self.cpu_cutoff or 0, self.dfs_first_max or 0)
         if not self.cpu_cutoff or n > band:
             return None, None, 0
         if n <= self.cpu_cutoff:
@@ -100,6 +106,17 @@ class TPULinearizableChecker(Checker):
             return wgl.pack_register_history
         if m == Mutex(False):
             return wgl.pack_mutex_history
+        return None
+
+    def _pack_batch_fn(self):
+        """Batched form of _pack_fn: one columnar packing pass over a
+        keyed dict of subhistories. None for CPU-only models."""
+        m = self.model_fn()
+        if m == VersionedRegister(0, None):
+            return wgl.pack_register_histories_batched
+        if m == Mutex(False):
+            return functools.partial(wgl.pack_register_histories_batched,
+                                     adapter=wgl.mutex_adapter)
         return None
 
     def _finalize(self, history, out: dict, pack, band) -> dict:
@@ -169,9 +186,9 @@ class TPULinearizableChecker(Checker):
             return small_unknown
         return self._fallback(history, reason, blowup=blowup)
 
-    def check(self, test, history, opts=None) -> dict:
+    def check(self, test, history, opts=None, _band=None) -> dict:
         small, small_unknown, band_budget = \
-            self._small_history_check(history)
+            self._small_history_check(history) if _band is None else _band
         if small is not None:
             return small
         pack = self._pack_fn()
@@ -202,3 +219,61 @@ class TPULinearizableChecker(Checker):
                                spill=not self.fallback, device=self.device)
         return self._finalize(history, out, pack=p,
                               band=(None, small_unknown, band_budget))
+
+    def check_batch(self, test, subhistories: dict, opts=None) -> dict:
+        """Check many per-key histories (called by checkers.Independent):
+        the keys the native DFS answers in milliseconds stay on the CPU;
+        the rest pack in one columnar pass, go to the wave kernel in one
+        launch per lane per (R-bucket, width) group, all launched before
+        one readback, and the keys it cannot take or that overflow ride
+        the batched ladder. Each verdict is finalized per key."""
+        results: dict = {}
+        big_keys = []
+        bands: dict = {}
+        # the mid-size band pays in a batch only when few keys would
+        # reach the launch: with more than 8 keys past the cutoff the
+        # band collapses to CPU_CUTOFF (the reference's rule)
+        mid_count = sum(1 for h in subhistories.values()
+                        if len(h) > (self.cpu_cutoff or 0))
+        batch_band = None if mid_count <= 8 else (self.cpu_cutoff or 0)
+        for k in subhistories:
+            band = self._small_history_check(subhistories[k],
+                                             band=batch_band)
+            if band[0] is not None:
+                results[k] = band[0]
+            else:
+                big_keys.append(k)
+                bands[k] = band
+        if not big_keys:
+            return results
+        pack_batch = self._pack_batch_fn()
+        if pack_batch is None:
+            results.update({k: self.check(test, subhistories[k], opts,
+                                          _band=bands[k])
+                            for k in big_keys})
+            return results
+        packed = pack_batch({k: subhistories[k] for k in big_keys})
+        packs = [packed[k] for k in big_keys]
+        outs: list = [None] * len(big_keys)
+        if self.f_max is None:
+            from ..ops import wgl_mxu
+            wgl_mxu.collect_packed_batch_mxu(
+                wgl_mxu.launch_packed_batch_mxu(
+                    packs, device=self.lanes_device), outs)
+        # keys the wave kernel couldn't take (info ops, wide ids) or
+        # whose frontier overflowed ride the batched ladder
+        rest = [i for i, out in enumerate(outs)
+                if out is None or out.get("overflow")]
+        if rest:
+            rest_outs = wgl.check_packed_batch(
+                [packs[i] for i in rest], f_max=self.f_max,
+                device=self.device)
+            for i, out in zip(rest, rest_outs):
+                outs[i] = out
+        # unpackable keys come back "unknown" with the pack reason;
+        # _finalize routes those through the CPU fallback and top-rung
+        # overflows through the DFS-then-spill ordering
+        results.update({k: self._finalize(subhistories[k], out, pack=p,
+                                           band=bands[k])
+                        for (k, out, p) in zip(big_keys, outs, packs)})
+        return results

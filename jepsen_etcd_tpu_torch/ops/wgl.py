@@ -19,6 +19,11 @@ rung the host-driven spill BFS (``_spill_bfs``), which is complete.
 ``check_prefix`` is the ladder paused every few waves (the streaming
 API).
 
+Many keys (the keyed register check) pack in one columnar pass
+(``pack_register_histories_batched``); the wave kernel takes every key
+it can (``wgl_mxu.launch_packed_batch_mxu``) and ``check_packed_batch``
+runs the rest on one batched ladder rung per key group.
+
 Frontier rows carry uint32 mask and count words in int64 tensors, so
 their unsigned order survives; every shift masks back to 32 bits.
 """
@@ -34,6 +39,7 @@ import numpy as np
 import torch
 
 from ..checkers.linearizable import history_entries
+from ..core.history import TYPE_NAMES, History
 from ..device import resolve_device
 from .common import UnsupportedValue, ValueIds, as_version, \
     register_value_sets
@@ -182,7 +188,20 @@ def pack_register_history(history, adapter=None) -> Packed:
     """Build the per-op vectors and window geometry for the kernel.
     Returns ok=False with a reason when the history needs the CPU path.
     ``adapter`` (optional) maps each entry's (f, value) into
-    register-language (f, value)."""
+    register-language (f, value).
+
+    Adapter-less histories route through the columnar fast path of
+    ``pack_register_histories_batched``, as in the reference;
+    ``_pack_reference`` is the per-key packer it is held against (and
+    the one adapters and the keys the fast path cannot express take)."""
+    if adapter is not None:
+        return _pack_reference(history, adapter=adapter)
+    return pack_register_histories_batched({0: history})[0]
+
+
+def _pack_reference(history, adapter=None) -> Packed:
+    """The per-key reference packer with the UnsupportedValue guard: the
+    delegation target for keys the batched fast path can't express."""
     try:
         return _pack_register_history(history, adapter=adapter)
     except UnsupportedValue as e:
@@ -420,6 +439,659 @@ def _pack_register_history(history, adapter) -> Packed:
     return p
 
 
+# ---------------------------------------------------------------------------
+# batched SoA packing (the host side of the keyed check)
+
+
+class _Delegate(Exception):
+    """A key's history needs semantics the columnar fast path doesn't
+    carry; re-pack it through the per-key reference packer."""
+
+
+def _classify_info(pos, f, ev, ilists):
+    """Classify one indefinite update (info completion or still-open
+    invoke; value is the INVOCATION's, per history_entries) into the
+    columnar info lists. Raises _Delegate whenever only the reference's
+    handling applies — its ok=False rejections (version-asserting
+    infos, unsupported fs, bad cas shapes) and its own exceptions on
+    malformed values — so delegation reproduces them exactly."""
+    if ev is None:
+        va = payload = None
+    elif (type(ev) is tuple or type(ev) is list) and len(ev) == 2:
+        va, payload = ev
+    else:
+        raise _Delegate
+    if va is not None:
+        raise _Delegate           # "info op with version assertion"
+    if f == "write":
+        fc = WRITE
+        if payload is None:
+            t1 = x1 = 0
+        elif type(payload) is int:
+            t1, x1 = 2, payload
+        else:
+            raise _Delegate       # non-int payload: interning needs ==
+        t2 = x2 = 0
+    elif f == "cas":
+        if not (isinstance(payload, (list, tuple)) and len(payload) == 2):
+            raise _Delegate       # "info op f='cas' not supported"
+        fc = CAS
+        old, new = payload
+        if old is None:
+            t1 = x1 = 0
+        elif type(old) is int:
+            t1, x1 = 2, old
+        else:
+            raise _Delegate
+        if new is None:
+            t2 = x2 = 0
+        elif type(new) is int:
+            t2, x2 = 2, new
+        else:
+            raise _Delegate
+    else:
+        raise _Delegate           # "info op f=... not supported"
+    ipos_l, if_l, i1t_l, i1v_l, i2t_l, i2v_l = ilists
+    ipos_l.append(pos)
+    if_l.append(fc)
+    i1t_l.append(t1)
+    i1v_l.append(x1)
+    i2t_l.append(t2)
+    i2v_l.append(x2)
+
+
+def _rows_from_ops(ops):
+    """Parallel (procs, types, fs, vals) row lists from dict ops — the
+    dict front-end of _extract_key_columns. One pass of dict lookups,
+    the same count the fused loop used to pay inline."""
+    procs, types, fs, vals = [], [], [], []
+    for op in ops:
+        procs.append(op.get("process"))
+        types.append(op.get("type"))
+        fs.append(op.get("f"))
+        vals.append(op.get("value"))
+    return procs, types, fs, vals
+
+
+def _rows_from_columns(cols):
+    """Parallel row lists straight from SoA columns (core/history.py
+    OpColumns) — zero per-op dict access: type/f decode through their
+    intern tables, non-int processes decode from proc_table, and the
+    values list is shared by reference (per-key sub-columns already
+    hold unwrapped payloads, exactly what the dict subhistory path
+    feeds the extraction loop)."""
+    types = [TYPE_NAMES[c] for c in cols.type_code.tolist()]
+    pt = cols.proc_table
+    procs = [p if p >= 0 else pt[-1 - p] for p in cols.proc.tolist()]
+    ft = cols.f_table
+    fs = [ft[c] for c in cols.f_code.tolist()]
+    return procs, types, fs, cols.values
+
+
+class _KeyExtract:
+    """Resumable form of the merged extraction pass over ONE key's raw
+    ops: invoke/completion pairing (history_entries), required-op
+    classification, and register-language field extraction fused into a
+    single loop, feedable in row chunks (the streaming packer's
+    per-chunk drain) or in one shot (:func:`_extract_key_columns`).
+
+    The state carried between ``feed`` calls — open invocations (each
+    held as ``(pos, f, value)`` so the completion may land in a later
+    chunk), the running int-process row position, and the required-op
+    count — is exactly the loop state of the one-shot pass, so chunked
+    feeding is bit-identical to one pass over the concatenation.
+    ``finish`` runs the history-end sweep (still-open ops become
+    indefinite updates) and must be called exactly once."""
+
+    __slots__ = ("lists", "ilists", "open_by", "pos", "n_req")
+
+    def __init__(self, lists=None, ilists=None):
+        self.lists = lists if lists is not None \
+            else tuple([] for _ in range(8))
+        self.ilists = ilists if ilists is not None \
+            else tuple([] for _ in range(6))
+        self.open_by: dict = {}
+        self.pos = 0
+        self.n_req = 0
+
+    def feed(self, rows) -> None:
+        """Consume one (procs, types, fs, vals) row-chunk. Raises
+        _Delegate / TypeError / ValueError exactly where the one-shot
+        pass would; the caller owns rollback of shared lists."""
+        procs, types, fs, vals = rows
+        inv_l, ret_l, f_l, ver_l, v1t_l, v1v_l, v2t_l, v2v_l = self.lists
+        ilists = self.ilists
+        open_by = self.open_by
+        pos = self.pos
+        n_req = self.n_req
+        lo_ver, hi_ver = -(2 ** 29), 2 ** 29
+        try:
+            for i, proc in enumerate(procs):
+                if not isinstance(proc, int):
+                    continue
+                pos += 1
+                t = types[i]
+                if t == "invoke":
+                    open_by[proc] = (pos, fs[i], vals[i])
+                    continue
+                got = open_by.pop(proc, None)
+                if got is None or t == "fail":
+                    continue
+                if t == "ok":
+                    f = got[1]
+                    ev = vals[i]
+                    # 2-unpacks mirror the reference exactly (it
+                    # unpacks any 2-iterable); failures surface as
+                    # TypeError/ValueError, which the caller converts
+                    # to delegation — and the reference then re-raises
+                    # the identical error
+                    if f == "read":
+                        fc = READ
+                        if ev is None:
+                            rv = rval = None
+                        else:
+                            rv, rval = ev
+                        if rval is None:
+                            t1, x1 = 0, 0  # wildcard: asserts nothing
+                        elif type(rval) is int:
+                            t1, x1 = 2, rval
+                        else:
+                            raise _Delegate
+                        t2 = x2 = 0
+                    elif f == "write":
+                        fc = WRITE
+                        rv, wval = ev
+                        if wval is None:
+                            t1, x1 = 1, 0
+                        elif type(wval) is int:
+                            t1, x1 = 2, wval
+                        else:
+                            raise _Delegate
+                        t2 = x2 = 0
+                    elif f == "cas":
+                        fc = CAS
+                        rv, (old, new) = ev
+                        if old is None:
+                            t1, x1 = 1, 0
+                        elif type(old) is int:
+                            t1, x1 = 2, old
+                        else:
+                            raise _Delegate
+                        if new is None:
+                            t2, x2 = 1, 0
+                        elif type(new) is int:
+                            t2, x2 = 2, new
+                        else:
+                            raise _Delegate
+                    else:
+                        raise _Delegate  # unsupported f: per-key msg
+                    if rv is None:
+                        ver = NO_ASSERT
+                    elif type(rv) is int and lo_ver < rv < hi_ver:
+                        ver = rv
+                    else:
+                        raise _Delegate  # as_version semantics / range
+                    inv_l.append(got[0])
+                    ret_l.append(pos)
+                    f_l.append(fc)
+                    ver_l.append(ver)
+                    v1t_l.append(t1)
+                    v1v_l.append(x1)
+                    v2t_l.append(t2)
+                    v2v_l.append(x2)
+                    n_req += 1
+                elif t == "info":
+                    f = got[1]
+                    if f != "read":    # indefinite update
+                        _classify_info(got[0], f, got[2], ilists)
+                    # info reads are dropped up front (assert nothing)
+                else:
+                    open_by[proc] = got  # ad-hoc type: leave op open
+        finally:
+            self.pos = pos
+            self.n_req = n_req
+
+    def finish(self) -> int:
+        """History end: ops still open are indefinite, like :info
+        completions. Returns the key's required-op count."""
+        for ppos, f, val in self.open_by.values():
+            if f != "read":
+                _classify_info(ppos, f, val, self.ilists)
+        return self.n_req
+
+
+def _extract_key_columns(rows, lists, ilists):
+    """ONE merged pass over a key's raw ops — the one-shot form of
+    :class:`_KeyExtract`. ``rows`` is the (procs, types, fs, vals)
+    parallel-list form of the ops — built by _rows_from_ops (dict
+    histories) or _rows_from_columns (SoA-backed histories, no dict
+    round-trip).
+    Appends required-op columns to the shared flat ``lists`` (and
+    indefinite updates to ``ilists``); returns the number of required
+    ops appended. Raises _Delegate on anything the vectorized phase
+    can't express bit-identically: non-int payload values (interning
+    needs Python == semantics), non-int or out-of-range version
+    assertions, unsupported fs, and malformed value shapes."""
+    st = _KeyExtract(lists, ilists)
+    st.feed(rows)
+    return st.finish()
+
+
+def _intern_values_batched(key_of, ridx, v1t, v1v, v2t, v2v,
+                           ikey, i1t, i1v, i2t, i2v, n_keys):
+    """Vectorized per-key value-id interning with ValueIds' exact
+    semantics restricted to int payloads: id 0 is None, concrete values
+    get dense ids in FIRST-APPEARANCE order of the per-key interning
+    stream — required ops by invoke, then indefinite updates in entry
+    order, a1 before a2 within an op. Returns (a1, a2, ia1, ia2,
+    n_values) with WILDCARD = -1 reads preserved."""
+    N = len(key_of)
+    m1 = v1t == 2
+    m2 = v2t == 2
+    j1 = i1t == 2
+    j2 = i2t == 2
+    n1 = int(np.count_nonzero(m1))
+    n2 = int(np.count_nonzero(m2))
+    n3 = int(np.count_nonzero(j1))
+    iidx = np.arange(len(ikey), dtype=np.int64)
+    ibase = np.int64(2 * N)       # infos intern after every required op
+    s_key = np.concatenate([key_of[m1], key_of[m2], ikey[j1], ikey[j2]])
+    s_val = np.concatenate([v1v[m1], v2v[m2], i1v[j1], i2v[j2]])
+    s_seq = np.concatenate([2 * ridx[m1], 2 * ridx[m2] + 1,
+                            ibase + 2 * iidx[j1],
+                            ibase + 2 * iidx[j2] + 1])
+    ids = np.empty(len(s_key), dtype=np.int64)
+    if len(s_key):
+        order = np.lexsort((s_seq, s_val, s_key))
+        sk, sv = s_key[order], s_val[order]
+        newg = np.ones(len(sk), dtype=bool)
+        newg[1:] = (sk[1:] != sk[:-1]) | (sv[1:] != sv[:-1])
+        heads = np.flatnonzero(newg)
+        hk, hs = sk[heads], s_seq[order][heads]
+        horder = np.lexsort((hs, hk))          # first-appearance order
+        hk_s = hk[horder]
+        firstk = np.ones(len(heads), dtype=bool)
+        firstk[1:] = hk_s[1:] != hk_s[:-1]
+        hpos = np.arange(len(heads), dtype=np.int64)
+        kstart = np.maximum.accumulate(np.where(firstk, hpos, 0))
+        gid = np.empty(len(heads), dtype=np.int64)
+        gid[horder] = hpos - kstart + 1
+        ids[order] = gid[np.cumsum(newg) - 1]
+        n_values = np.bincount(hk, minlength=n_keys) + 1
+    else:
+        n_values = np.ones(n_keys, dtype=np.int64)
+    a1 = np.where(v1t == 0, np.int64(WILDCARD), np.int64(0))
+    a1[m1] = ids[:n1]
+    a2 = np.zeros(len(v2t), dtype=np.int64)
+    a2[m2] = ids[n1:n1 + n2]
+    ia1 = np.zeros(len(ikey), dtype=np.int64)
+    ia1[j1] = ids[n1 + n2:n1 + n2 + n3]
+    ia2 = np.zeros(len(ikey), dtype=np.int64)
+    ia2[j2] = ids[n1 + n2 + n3:]
+    return a1, a2, ia1, ia2, n_values
+
+
+def _merge_dead_values_batched(key_of, fcode, a1, a2, n_values):
+    """Vectorized dead-value merge (register_value_sets semantics over
+    required AND indefinite ops): per key, producible-but-never-
+    asserted ids collapse to the smallest such id when there is more
+    than one. Mutates a1/a2 in place; returns (vbase, prod_mask) — the
+    per-key id-space offsets and the PRE-merge producible mask the
+    reference uses for its never-fires info-cas drop."""
+    n_keys = len(n_values)
+    vbase = np.zeros(n_keys, dtype=np.int64)
+    np.cumsum(n_values[:-1], out=vbase[1:])
+    V = int(vbase[-1] + n_values[-1]) if n_keys else 0
+    isread = fcode == READ
+    iswrite = fcode == WRITE
+    iscas = fcode == CAS
+    kb = vbase[key_of]
+    ga1 = a1 + kb
+    ga2 = a2 + kb
+    assert_mask = np.zeros(V, dtype=bool)
+    assert_mask[ga1[(isread & (a1 != WILDCARD)) | iscas]] = True
+    prod_mask = np.zeros(V, dtype=bool)
+    prod_mask[ga1[iswrite]] = True
+    prod_mask[ga2[iscas]] = True
+    dead = prod_mask & ~assert_mask
+    dead[vbase] = False                       # id 0 (None) never merges
+    vkey = np.repeat(np.arange(n_keys), n_values)
+    dead_counts = np.bincount(vkey[dead], minlength=n_keys)
+    if not np.any(dead_counts > 1):
+        return vbase, prod_mask
+    didx = np.flatnonzero(dead)
+    dk = vkey[didx]
+    firstd = np.ones(len(didx), dtype=bool)
+    firstd[1:] = dk[1:] != dk[:-1]
+    dead_min = np.zeros(n_keys, dtype=np.int64)
+    dead_min[dk[firstd]] = didx[firstd] - vbase[dk[firstd]]
+    rem = (dead_counts > 1)[key_of]
+    hit1 = rem & iswrite & dead[np.where(iswrite, ga1, 0)]
+    a1[hit1] = dead_min[key_of[hit1]]
+    hit2 = rem & iscas & dead[ga2]
+    a2[hit2] = dead_min[key_of[hit2]]
+    return vbase, prod_mask
+
+
+def pack_register_histories_batched(subhistories: dict,
+                                    adapter=None) -> dict:
+    """Batched structure-of-arrays form of ``pack_register_history``
+    over a keyed dict of subhistories — the host side of the key-DP
+    axis. One merged Python pass per op does pairing + classification +
+    field extraction; everything downstream (value-id interning, dead-
+    value merge, predecessor/window geometry, version ceilings, time
+    rank compression) runs as single numpy calls vectorized ACROSS all
+    keys, using per-key segment offsets so every per-key searchsorted /
+    prefix-scan becomes one global operation on globally-sorted data.
+
+    Per-key results are bit-identical to ``pack_register_history``
+    (differentially tested in tests/test_wgl_batch_pack.py), including
+    indefinite updates (info/crashed writes and cas, their symmetry
+    classes and count-word layout). Keys the columnar path can't
+    express (adapters, non-int payload values, non-int/out-of-range
+    version assertions, malformed shapes, version-asserting infos)
+    silently delegate to the per-key packer, so only the constant
+    factor ever changes. Returns ``{key: Packed}``."""
+    out: dict = {}
+    fast_keys: list = []
+    seg_R_l: list = []
+    seg_I_l: list = []
+    lists = tuple([] for _ in range(8))
+    ilists = tuple([] for _ in range(6))
+    alllists = lists + ilists
+    (inv_l, ret_l, f_l, ver_l, v1t_l, v1v_l, v2t_l, v2v_l) = lists
+    (ipos_l, if_l, i1t_l, i1v_l, i2t_l, i2v_l) = ilists
+    for key, h in subhistories.items():
+        if adapter is not None:
+            out[key] = _pack_reference(h, adapter=adapter)
+            continue
+        # column-backed per-key histories (Independent's split of a
+        # recorded run) extract straight from the SoA arrays — the
+        # dict op stream is never materialized on this path
+        cols = getattr(h, "columns", None) if isinstance(h, History) \
+            else None
+        if cols is not None:
+            rows = _rows_from_columns(cols)
+        else:
+            rows = _rows_from_ops(h.ops if isinstance(h, History) else h)
+        marks = [len(c) for c in alllists]
+        imark = len(ipos_l)
+        try:
+            n_req = _extract_key_columns(rows, lists, ilists)
+        except (_Delegate, TypeError, ValueError):
+            # TypeError/ValueError: a value didn't 2-unpack the way the
+            # op's ``f`` demands — the reference raises the identical
+            # error (or returns its Packed) for the same history
+            for c, m in zip(alllists, marks):
+                del c[m:]
+            out[key] = _pack_reference(h)
+            continue
+        if n_req == 0:
+            # with no required ops every history linearizes trivially,
+            # before any indefinite op is even considered
+            for c, m in zip(alllists, marks):
+                del c[m:]
+            out[key] = Packed(ok=True, R=0)
+            continue
+        fast_keys.append(key)
+        seg_R_l.append(n_req)
+        seg_I_l.append(len(ipos_l) - imark)
+    if not fast_keys:
+        return out
+    return _pack_batched_tail(fast_keys, seg_R_l, seg_I_l,
+                              lists, ilists, out)
+
+
+def _pack_batched_tail(fast_keys, seg_R_l, seg_I_l, lists, ilists,
+                       out: dict) -> dict:
+    """The vectorized phase of :func:`pack_register_histories_batched`:
+    given the flat per-key-contiguous extraction lists (keys in the
+    order of ``fast_keys``, required ops sorted by invoke within each
+    key's segment), run interning, dead-value merge, window geometry,
+    ceilings, rank compression and per-key Packed assembly. (The
+    reference shares it with its streaming packer ``PackStream``, which
+    comes to the port with the streaming slice.)"""
+    (inv_l, ret_l, f_l, ver_l, v1t_l, v1v_l, v2t_l, v2v_l) = lists
+    (ipos_l, if_l, i1t_l, i1v_l, i2t_l, i2v_l) = ilists
+
+    Kf = len(fast_keys)
+    seg_R = np.array(seg_R_l, dtype=np.int64)
+    starts = np.zeros(Kf, dtype=np.int64)
+    np.cumsum(seg_R[:-1], out=starts[1:])
+    N = int(starts[-1] + seg_R[-1])
+    key_of = np.repeat(np.arange(Kf), seg_R)
+    ridx = np.arange(N, dtype=np.int64)
+    i_within = ridx - starts[key_of]
+
+    inv64 = np.array(inv_l, dtype=np.int64)
+    ret64 = np.array(ret_l, dtype=np.int64)
+    fcode = np.array(f_l, dtype=np.int8)
+    ver = np.array(ver_l, dtype=np.int32)
+    v1t = np.array(v1t_l, dtype=np.int8)
+    v1v = np.array(v1v_l, dtype=np.int64)
+    v2t = np.array(v2t_l, dtype=np.int8)
+    v2v = np.array(v2v_l, dtype=np.int64)
+
+    # required ops sort by invoke within each key (stable; invokes are
+    # distinct per key, so this matches the per-key sorted())
+    perm = np.lexsort((inv64, key_of))
+    inv64, ret64 = inv64[perm], ret64[perm]
+    fcode, ver = fcode[perm], ver[perm]
+    v1t, v1v, v2t, v2v = v1t[perm], v1v[perm], v2t[perm], v2v[perm]
+
+    # per-key searchsorted via segment time offsets: key k's times move
+    # to a disjoint band k * T_OFF, so ONE global searchsorted against
+    # the concatenation of per-key-sorted arrays answers all keys
+    T_OFF = np.int64(2) ** 32
+    tbase = key_of * T_OFF
+    ginv = inv64 + tbase                     # sorted (invoke order)
+    gret_sorted = np.sort(ret64 + tbase)
+    pred = np.searchsorted(gret_sorted, ginv, side="left") - starts[key_of]
+    cap = np.searchsorted(ginv, ret64 + tbase, side="left") \
+        - starts[key_of] - 1
+
+    # indefinite updates: npred = count of required rets before the
+    # invoke; ops that could only linearize after depth R are dropped
+    # BEFORE interning (the reference never interns their values)
+    seg_I = np.array(seg_I_l, dtype=np.int64)
+    ikey = np.repeat(np.arange(Kf), seg_I)
+    ipos = np.array(ipos_l, dtype=np.int64)
+    if8 = np.array(if_l, dtype=np.int8)
+    i1t = np.array(i1t_l, dtype=np.int8)
+    i1v = np.array(i1v_l, dtype=np.int64)
+    i2t = np.array(i2t_l, dtype=np.int8)
+    i2v = np.array(i2v_l, dtype=np.int64)
+    npred = np.searchsorted(gret_sorted, ipos + ikey * T_OFF,
+                            side="left") - starts[ikey]
+    keep = npred < seg_R[ikey]
+    if not np.all(keep):
+        ikey, ipos, npred = ikey[keep], ipos[keep], npred[keep]
+        if8, i1t, i1v = if8[keep], i1t[keep], i1v[keep]
+        i2t, i2v = i2t[keep], i2v[keep]
+
+    a1, a2, ia1, ia2, n_values = _intern_values_batched(
+        key_of, ridx, v1t, v1v, v2t, v2v, ikey, i1t, i1v, i2t, i2v, Kf)
+    # dead-value merge over required + indefinite triples jointly, then
+    # the reference's never-fires drop: an info cas whose old value has
+    # no producer (pre-merge producible set) can never linearize
+    gkeys = np.concatenate([key_of, ikey])
+    gfc = np.concatenate([fcode, if8])
+    ga1 = np.concatenate([a1, ia1])
+    ga2 = np.concatenate([a2, ia2])
+    vbase, producible = _merge_dead_values_batched(
+        gkeys, gfc, ga1, ga2, n_values)
+    a1, ia1 = ga1[:N], ga1[N:]
+    a2, ia2 = ga2[:N], ga2[N:]
+    keep = ~((if8 == CAS) & (ia1 != NONE_VAL)
+             & ~producible[vbase[ikey] + ia1])
+    if not np.all(keep):
+        ikey, ipos, npred = ikey[keep], ipos[keep], npred[keep]
+        if8, ia1, ia2 = if8[keep], ia1[keep], ia2[keep]
+    seg_I = np.bincount(ikey, minlength=Kf).astype(np.int64)
+
+    # lo[d] per depth d in 0..R_k: insertion of d into the running
+    # prefix max of cap — the ragged [R_k + 1] query axis flattens to
+    # one M-array with per-key offsets (qstart_k = starts_k + k)
+    gpm = np.maximum.accumulate(cap + tbase)
+    M = N + Kf
+    qstarts = starts + np.arange(Kf)
+    qkey = np.repeat(np.arange(Kf), seg_R + 1)
+    qd = np.arange(M, dtype=np.int64) - qstarts[qkey]
+    glo = (np.searchsorted(gpm, qd + qkey * T_OFF, side="left")
+           - starts[qkey]).astype(np.int64)
+
+    # window feasibility / width selection (per-key maxima via reduceat)
+    width_bits = np.maximum.reduceat(qd - glo, qstarts)
+    lo_R = glo[ridx + key_of]                # lo[:R] rows, N-aligned
+    first_lo = glo[qstarts[key_of] + np.minimum(pred, seg_R[key_of])]
+    width_cand = np.maximum.reduceat(i_within - first_lo, starts) + 1
+    width = np.maximum(width_bits, width_cand)
+    w_key = np.where(width <= W, W, np.where(width <= 64, 64, W_MAX))
+
+    # forced update counts: per-key exclusive prefix sums of update ops
+    is_upd = (fcode == WRITE) | (fcode == CAS)
+    pcs = np.zeros(N + 1, dtype=np.int64)
+    np.cumsum(is_upd, out=pcs[1:])
+    u_forced = (pcs[starts[key_of] + lo_R]
+                - pcs[starts[key_of]]).astype(np.int32)
+
+    # version ceilings + per-key suffix min (offset-banded accumulate)
+    CEIL_INF = np.int32(2 ** 30)
+    ceiling = np.where(ver == NO_ASSERT, CEIL_INF,
+                       np.where(fcode == READ, ver, ver - 1)) \
+        .astype(np.int32)
+    gsuf = np.minimum.accumulate(
+        (ceiling.astype(np.int64) + tbase)[::-1])[::-1] - tbase
+    tgt = lo_R + w_key[key_of]
+    ceil_beyond = np.where(
+        tgt >= seg_R[key_of], np.int64(CEIL_INF),
+        gsuf[np.clip(starts[key_of] + tgt, 0, N - 1)]).astype(np.int32)
+
+    # joint rank compression of invoke/return times per key: one stable
+    # global lexsort, ranks rebased to each key's 2R block
+    t_all = np.concatenate([inv64, ret64])
+    tk = np.concatenate([key_of, key_of])
+    tpos = np.concatenate([i_within, i_within + seg_R[key_of]])
+    sorder = np.lexsort((tpos, t_all, tk))
+    ranks_flat = np.empty(2 * N, dtype=np.int64)
+    ranks_flat[sorder] = np.arange(2 * N, dtype=np.int64) \
+        - 2 * starts[tk[sorder]]
+    inv_rank = ranks_flat[:N].astype(np.int32)
+    ret_rank = ranks_flat[N:].astype(np.int32)
+
+    shift = (glo[ridx + key_of + 1] - glo[ridx + key_of]) \
+        .astype(np.int32)
+    a1_32 = a1.astype(np.int32)
+    a2_32 = a2.astype(np.int32)
+    pred_32 = pred.astype(np.int32)
+
+    # info symmetry classes: per key, sort members by ((f, a1, a2),
+    # (npred, invoke)) — stable, so ties keep entry order like the
+    # reference's explicit j tiebreak — and take run boundaries as
+    # class heads. _i_inv_rank ranks each member's invoke among the
+    # key's 2R required times, in this class-sorted member order.
+    istarts = np.zeros(Kf, dtype=np.int64)
+    np.cumsum(seg_I[:-1], out=istarts[1:])
+    NI_tot = len(ikey)
+    if NI_tot:
+        corder = np.lexsort((ipos, npred, ia2, ia1, if8, ikey))
+        sk, sf = ikey[corder], if8[corder]
+        sa1, sa2 = ia1[corder], ia2[corder]
+        sip = ipos[corder]
+        newc = np.ones(NI_tot, dtype=bool)
+        newc[1:] = (sk[1:] != sk[:-1]) | (sf[1:] != sf[:-1]) \
+            | (sa1[1:] != sa1[:-1]) | (sa2[1:] != sa2[:-1])
+        rstarts = np.flatnonzero(newc)
+        rsizes = np.diff(np.append(rstarts, NI_tot))
+        ckey = sk[rstarts]
+        c_f_all = sf[rstarts]
+        c_a1_all = sa1[rstarts].astype(np.int32)
+        c_a2_all = sa2[rstarts].astype(np.int32)
+        c_off_all = (rstarts - istarts[ckey]).astype(np.int32)
+        c_size_all = rsizes.astype(np.int32)
+        cstarts = np.searchsorted(ckey, np.arange(Kf), side="left")
+        cends = np.searchsorted(ckey, np.arange(Kf), side="right")
+        g_all_sorted = t_all[sorder] + tk[sorder] * T_OFF
+        i_inv_rank_all = (np.searchsorted(g_all_sorted,
+                                          sip + sk * T_OFF, side="left")
+                          - 2 * starts[sk]).astype(np.int64)
+
+    empty8 = np.zeros(0, dtype=np.int8)
+    empty32 = np.zeros(0, dtype=np.int32)
+    emptyu32 = np.zeros(0, dtype=np.uint32)
+    empty64 = np.zeros(0, dtype=np.int64)
+    for j, key in enumerate(fast_keys):
+        R = int(seg_R[j])
+        I = int(seg_I[j])
+        if I:
+            cs, ce = int(cstarts[j]), int(cends[j])
+            C = ce - cs
+            c_size = c_size_all[cs:ce]
+            # bit layout: each class's count field is
+            # ceil(log2(size+1)) bits, placed in the first word with
+            # room (fields never cross words) — the C-length greedy
+            # scan is the reference's, verbatim (C is tiny)
+            c_word = np.zeros(C, dtype=np.int32)
+            c_shift = np.zeros(C, dtype=np.int32)
+            c_mask = np.zeros(C, dtype=np.uint32)
+            word, used = 0, 0
+            for ci in range(C):
+                bits = max(1, int(c_size[ci]).bit_length())
+                if used + bits > 32:
+                    word, used = word + 1, 0
+                c_word[ci] = word
+                c_shift[ci] = used
+                c_mask[ci] = (1 << bits) - 1
+                used += bits
+            ni = word + 1
+            if ni > NI_MAX:
+                out[key] = Packed(
+                    ok=False, blowup=True,
+                    reason=f"{I} info updates in {C} classes need "
+                           f"{ni} count words > {NI_MAX}")
+                continue
+            if I > I_TABLE_MAX:
+                out[key] = Packed(
+                    ok=False, blowup=True,
+                    reason=f"{I} info updates > member-table cap "
+                           f"{I_TABLE_MAX}")
+                continue
+        else:
+            C, ni = 0, 0
+        if width[j] > W_MAX:
+            out[key] = Packed(
+                ok=False,
+                reason=f"window {int(width[j])} > {W_MAX} "
+                       f"(concurrency too high for kernel)")
+            continue
+        s, e = int(starts[j]), int(starts[j] + R)
+        qs = int(qstarts[j])
+        p = Packed(
+            ok=True, R=R, I=I, n_values=int(n_values[j]),
+            w=int(w_key[j]),
+            shift=shift[s:e], u_forced=u_forced[s:e],
+            ceil_beyond=ceil_beyond[s:e],
+            C=C, ni=ni,
+            c_f=c_f_all[cs:ce] if I else empty8,
+            c_a1=c_a1_all[cs:ce] if I else empty32,
+            c_a2=c_a2_all[cs:ce] if I else empty32,
+            c_size=c_size if I else empty32,
+            c_off=c_off_all[cs:ce] if I else empty32,
+            c_word=c_word if I else empty32,
+            c_shift=c_shift if I else empty32,
+            c_mask=c_mask if I else emptyu32,
+            op_a1=a1_32[s:e], op_a2=a2_32[s:e], op_ver=ver[s:e],
+            op_f=fcode[s:e], op_pred_rank=pred_32[s:e],
+            op_ceiling=ceiling[s:e],
+            inv_rank=inv_rank[s:e], ret_rank=ret_rank[s:e],
+            lo=glo[qs:qs + R + 1],
+        )
+        iis = int(istarts[j])
+        p._i_inv_rank = i_inv_rank_all[iis:iis + I] if I else empty64
+        out[key] = p
+    return out
+
+
 def ensure_frames(p: Packed) -> None:
     """Materialize the [R, W] / [R, W, W] / [R, I] frame tables on the
     Packed (idempotent). The host reference packer
@@ -551,15 +1223,20 @@ def pad_tables(p: Packed, r_pad: int, info: tuple = None) -> dict:
     return t
 
 
-def device_tables(p: Packed, dev: torch.device) -> dict:
-    """``pad_tables`` on ``dev``: bool tables stay bool, every integer
+def _tables_to(tables: dict, dev: torch.device) -> dict:
+    """Numpy tables on ``dev``: bool tables stay bool, every integer
     table (uint32 words included, unsigned) becomes int64."""
     out = {}
-    for k, v in pad_tables(p, bucket(p.R)).items():
+    for k, v in tables.items():
         a = np.asarray(v)
         out[k] = torch.from_numpy(
             a if a.dtype == bool else a.astype(np.int64)).to(dev)
     return out
+
+
+def device_tables(p: Packed, dev: torch.device) -> dict:
+    """``pad_tables`` on ``dev`` (see ``_tables_to``)."""
+    return _tables_to(pad_tables(p, bucket(p.R)), dev)
 
 
 def _lex_order(keys: list) -> torch.Tensor:
@@ -974,6 +1651,87 @@ def check_packed(p: Packed, f_max: Optional[int] = None,
                                     (tables, frontier, k))
         return _spilled_result(p, tables, frontier, k, peak_all, rungs)
     return _ladder_result(p, valid, k, peak_all, rungs)
+
+
+def group_key(p: Packed) -> tuple:
+    """The (R-bucket, info dims, window width) group key: keys sharing
+    it share padded table shapes and ride one batched ladder rung."""
+    return (bucket(p.R), info_dims(p), p.w)
+
+
+def prepare_bucket_group(packs: list, idxs: list, r_pad: int,
+                         info: tuple) -> dict:
+    """Pad a same-``group_key`` key group's tables to the group's
+    ``(r_pad, info)`` shapes and stack them on the host: {table name:
+    [K, ...] numpy array}, key j being ``packs[idxs[j]]``."""
+    per_key = [pad_tables(packs[i], r_pad, info) for i in idxs]
+    return {name: np.stack([t[name] for t in per_key])
+            for name in per_key[0]}
+
+
+def check_packed_batch(packs: list, f_max: Optional[int] = None,
+                       device=None) -> list:
+    """Check K per-key packed histories on the ladder, one result dict
+    per pack in input order: the keys the wave kernel cannot take or
+    whose kernel search overflowed (``TPULinearizableChecker.check_batch``
+    launches the kernel for the others itself).
+
+    The keys group by ``group_key``: a lone key climbs the ladder
+    through ``check_packed``; a group of several runs the batched rung
+    at the group's fixed capacity (128 unless ``f_max`` is given) on
+    tables padded to the group's shapes, each key's waves until it
+    finishes — the reference's vmapped ``_wgl_kernel``, whose finished
+    keys are masked, gives the same per-key dicts, labelled ``batched:
+    True``. A key that overflows the batched rung climbs from F_MAX.
+    Spill is deferred (``{"overflow": True, "_resume": ...}``) so the
+    checker can interpose its DFS."""
+    dev = resolve_device(device)
+    results: list = [None] * len(packs)
+    groups: dict = {}
+    for i, p in enumerate(packs):
+        if not p.ok:
+            results[i] = {"valid?": "unknown", "reason": p.reason,
+                          "blowup": p.blowup}
+        elif p.R == 0:
+            results[i] = {"valid?": True, "waves": 0}
+        else:
+            groups.setdefault(group_key(p), []).append(i)
+    for (r_pad, info, w), idxs in groups.items():
+        _check_bucket_group(packs, results, idxs, r_pad, info, w, f_max,
+                            dev)
+    return results
+
+
+def _check_bucket_group(packs: list, results: list, idxs: list,
+                        r_pad: int, info: tuple, w: int,
+                        f_max: Optional[int], dev: torch.device) -> None:
+    """The batched rung for one same-``group_key`` key group; results
+    written in place. The group's stacked tables go to ``dev`` in one
+    copy per table; each key's rung reads its own slice."""
+    if len(idxs) == 1:
+        # a lone pack rides the rung ladder (early exit beats the
+        # fixed-capacity batched rung)
+        results[idxs[0]] = check_packed(packs[idxs[0]], f_max=f_max,
+                                        spill=False, device=dev)
+        return
+    if f_max is None:
+        f_max = 128
+    stacked = _tables_to(prepare_bucket_group(packs, idxs, r_pad, info),
+                         dev)
+    for j, i in enumerate(idxs):
+        p = packs[i]
+        valid, overflow, k, peak, _ = _wgl_loop(
+            {name: t[j] for name, t in stacked.items()}, p.R, p.I, f_max,
+            w, (0, *_initial_frontier(f_max, w // 32, info[1], dev)))
+        if overflow:
+            # climb the remaining rungs per key; spill deferred
+            results[i] = check_packed(p, f_max=F_MAX, spill=False,
+                                      device=dev)
+        else:
+            results[i] = {
+                "valid?": valid, "waves": k, "peak-frontier": peak,
+                "ops": p.R, "info-ops": p.I, "batched": True,
+                **({} if valid else {"stuck-at-depth": k})}
 
 
 def spill_packed(p: Packed, tables, frontier, waves_done: int) -> dict:

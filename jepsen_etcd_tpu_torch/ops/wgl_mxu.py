@@ -23,9 +23,17 @@ candidates survive an overflow, the frontier row order, and so
 Soundness contract (the reference's): accepted=True is witnessed by a
 surviving path; accepted=False is reported only when no wave
 overflowed; anything else degrades to ``{"overflow": True}``.
+
+A batch of keys (``launch_packed_batch_mxu``) is packed key-major,
+padded to the lane geometry of ``_batch_geometry`` and split evenly over
+the lanes of ``batch_lanes``: one kernel launch per lane, each on its
+own device and stream, the counterpart of the reference's
+``_call_batch_sharded`` over a ``("key",)`` device mesh.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -34,6 +42,9 @@ from ..device import resolve_device
 from .wgl import CAS, NO_ASSERT, READ, WILDCARD, WRITE, Packed, bucket
 
 F = 32            # frontier capacity (states)
+#: keys per batched launch chunk: bounds the padded batch of a huge
+#: group; a (r_pad, wk) group normally launches once per lane
+BATCH_CHUNK = 1024
 W_SUPPORTED = (32, 64, 128)
 TSUB = 8          # smallest r_pad
 DONE_EVERY = 8    # waves between frontier-death checks (plain version)
@@ -160,6 +171,75 @@ def pack_perop(p: Packed, r_pad: int):
     u16[:R, C_CEILB] = relb
     u16[:R, C_UF] = uf
     u16[:, C_R] = R
+    return i32, u16
+
+
+def pack_perop_batch(packs: list, r_pad: int, k_pad: int | None = None):
+    """Vectorized ``pack_perop`` over a whole launch chunk: ONE numpy
+    pass over the concatenated per-op columns fills the [k_pad, r_pad,
+    4] int32 and [k_pad, r_pad, 12] uint16 batch tensors, bit-identical
+    to the per-key loop. A single fancy-index row scatter lands every
+    key at ``kid * r_pad + row``; padding keys beyond ``len(packs)``
+    stay all-zero (R = 0) rows."""
+    K = len(packs)
+    kp = K if k_pad is None else k_pad
+    i32 = np.zeros((kp, r_pad, 4), dtype=np.int32)
+    u16 = np.zeros((kp, r_pad, 12), dtype=np.uint16)
+    if K == 0:
+        return i32, u16
+    Rs = np.fromiter((p.R for p in packs), dtype=np.int64, count=K)
+    # C_R rides every row (real and pad) of a real key
+    u16[:K, :, C_R] = Rs[:, None].astype(np.uint16)
+    N = int(Rs.sum())
+    if N == 0:
+        return i32, u16
+    kid = np.repeat(np.arange(K), Rs)                  # [N] key per op
+    offs = np.concatenate(([0], np.cumsum(Rs)[:-1]))
+    row = np.arange(N, dtype=np.int64) - offs[kid]     # [N] in-key row
+
+    live = [p for p in packs if p.R]
+
+    def cat(get):
+        return np.concatenate([np.asarray(get(p), dtype=np.int64)
+                               for p in live])
+
+    inv = cat(lambda p: p.inv_rank)
+    ret = cat(lambda p: p.ret_rank)
+    a1 = cat(lambda p: p.op_a1)
+    a2 = cat(lambda p: p.op_a2)
+    ver = cat(lambda p: p.op_ver)
+    f = cat(lambda p: p.op_f)
+    pred = cat(lambda p: p.op_pred_rank)
+    ceil = cat(lambda p: p.op_ceiling)
+    lo = cat(lambda p: p.lo[:p.R])
+    shift = cat(lambda p: p.shift)
+    uf = cat(lambda p: p.u_forced)
+    ceilb = cat(lambda p: p.ceil_beyond)
+    wv = np.repeat(np.fromiter((p.w for p in live), dtype=np.int64,
+                               count=len(live)),
+                   Rs[Rs > 0])                         # [N] window width
+
+    i32f = np.zeros((N, 4), dtype=np.int32)
+    i32f[:, 0] = inv
+    i32f[:, 1] = ret
+    u16f = np.zeros((N, 12), dtype=np.uint16)
+    u16f[:, C_A1] = np.where(a1 == WILDCARD, 0, a1 + 1)
+    u16f[:, C_A2] = a2 + 1
+    u16f[:, C_VER] = np.where(
+        ver == NO_ASSERT, U16_NOASSERT,
+        np.where((ver < 0) | (ver >= 65000), U16_NEVER, ver + 1))
+    u16f[:, C_FSK1] = f + 1
+    u16f[:, C_PRED] = np.clip(pred, 0, 65533)
+    u16f[:, C_CEIL] = np.where(ceil >= 2 ** 30, U16_INF,
+                               np.clip(ceil + 1, 0, U16_INF - 1))
+    u16f[:, C_LO] = lo
+    u16f[:, C_SHIFT] = np.clip(shift, 0, 65535)
+    u16f[:, C_CEILB] = np.where(ceilb >= 2 ** 30, U16_INF - 1,
+                                np.clip(ceilb - uf, -1, wv + 1) + 1)
+    u16f[:, C_UF] = uf
+    u16f[:, C_R] = Rs[kid]
+    i32[kid, row] = i32f
+    u16[kid, row] = u16f
     return i32, u16
 
 
@@ -499,15 +579,101 @@ def _decode(out: np.ndarray, p: Packed) -> dict:
             "stuck-at-depth": waves}
 
 
-def _search(packs: list, r_pad: int, wk: int, dev: torch.device):
-    """Per-op packing, frame build and ONE wave-search launch for packs
-    sharing (r_pad, wk) -> [K, 4] numpy."""
-    per = [pack_perop(p, r_pad) for p in packs]
-    i32 = torch.from_numpy(np.stack([a for a, _ in per])).to(dev)
-    u16 = torch.from_numpy(
-        np.stack([b for _, b in per]).astype(np.int32)).to(dev)
-    tab, scal = build_tables(i32, u16, r_pad, wk)
-    return wave_search(tab, scal, wk).cpu().numpy()
+def batch_lanes(device=None) -> list:
+    """The lanes a batched launch splits its keys over, one launch per
+    lane (the reference's ``("key",)`` mesh of ``_call_batch_sharded``).
+    With ``device`` named, one lane on it; with none, every visible CUDA
+    card (the reference takes ``jax.devices()``), raising without one.
+    Tests and ``chip_smoke.py`` substitute this helper to run several
+    lanes on one device."""
+    if device is not None:
+        return [resolve_device(device)]
+    resolve_device(None)
+    return [torch.device("cuda", i)
+            for i in range(torch.cuda.device_count())]
+
+
+def _batch_geometry(K: int, n_lanes: int):
+    """(k_pad, n_dev) for a K-key chunk over ``n_lanes`` lanes: on one
+    lane, the next power of two; over several, pow2-bucketed keys PER
+    LANE times the lanes used (never more lanes than keys). Padding
+    keys are all-zero rows (R = 0) whose searches die at once; their
+    results are dropped at decode."""
+    n_dev = min(n_lanes, K)
+    if n_dev > 1:
+        per_dev = 1
+        while per_dev * n_dev < K:
+            per_dev *= 2
+        return per_dev * n_dev, n_dev
+    k_pad = 1
+    while k_pad < K:
+        k_pad *= 2
+    return k_pad, 1
+
+
+def _launch_lane(i32: np.ndarray, u16: np.ndarray, r_pad: int, wk: int,
+                 dev: torch.device, stream=None) -> torch.Tensor:
+    """One lane's share of a launch: its key-major per-op slabs to
+    ``dev``, the frame build, and ONE wave-search launch, all on
+    ``stream`` (the current stream when None). Returns the [k, 4] int32
+    result on ``dev`` without waiting for it."""
+    with torch.cuda.stream(stream) if stream is not None \
+            else contextlib.nullcontext():
+        i32_t = torch.from_numpy(np.ascontiguousarray(i32)).to(dev)
+        u16_t = torch.from_numpy(u16.astype(np.int32)).to(dev)
+        tab, scal = build_tables(i32_t, u16_t, r_pad, wk)
+        return wave_search(tab, scal, wk)
+
+
+def launch_packed_batch_mxu(packs: list, device=None) -> list:
+    """Stage and launch the supported packs: per (R-bucket, window
+    width, BATCH_CHUNK) chunk, the key-major batch splits evenly over
+    the lanes of ``batch_lanes(device)`` and each lane runs one kernel
+    launch on its own device and stream (no collectives: keys are
+    independent). Returns (index_chunk, lane_outputs, pack_chunk) launch
+    records for ``collect_packed_batch_mxu``; every launch goes out
+    before any readback, so a whole batch pays one synchronization."""
+    lanes = batch_lanes(device)
+    streams = [torch.cuda.Stream(device=d) if d.type == "cuda" else None
+               for d in lanes]
+    groups: dict = {}
+    for i, p in enumerate(packs):
+        if supported(p):
+            groups.setdefault((max(bucket(p.R), TSUB), p.w), []).append(i)
+    launched = []
+    for (r_pad, wk), idxs in groups.items():
+        for lo_i in range(0, len(idxs), BATCH_CHUNK):
+            chunk = idxs[lo_i:lo_i + BATCH_CHUNK]
+            chunk_packs = [packs[i] for i in chunk]
+            k_pad, n_dev = _batch_geometry(len(chunk), len(lanes))
+            i32s, u16s = pack_perop_batch(chunk_packs, r_pad, k_pad)
+            per = k_pad // n_dev
+            outs = [_launch_lane(i32s[d * per:(d + 1) * per],
+                                 u16s[d * per:(d + 1) * per], r_pad, wk,
+                                 lanes[d], streams[d])
+                    for d in range(n_dev)]
+            launched.append((chunk, outs, chunk_packs))
+    return launched
+
+
+def readback(launched: list) -> list:
+    """Wait for every launch record's lanes (one synchronization per
+    device) and return (index_chunk, [k_pad, 4] numpy, pack_chunk)
+    records, the lanes' outputs concatenated in key order."""
+    for d in {o.device for _, outs, _ in launched for o in outs
+              if o.device.type == "cuda"}:
+        torch.cuda.synchronize(d)
+    return [(chunk, torch.cat([o.cpu() for o in outs]).numpy(),
+             chunk_packs) for chunk, outs, chunk_packs in launched]
+
+
+def collect_packed_batch_mxu(launched: list, results: list) -> None:
+    """Read back launch records from ``launch_packed_batch_mxu`` and
+    decode into ``results`` (indexed as the original pack list);
+    padding keys' rows are dropped."""
+    for chunk, out, chunk_packs in readback(launched):
+        for j, (i, p) in enumerate(zip(chunk, chunk_packs)):
+            results[i] = _decode(out[j], p)
 
 
 def check_packed_mxu(p: Packed, device=None) -> dict | None:
@@ -517,24 +683,22 @@ def check_packed_mxu(p: Packed, device=None) -> dict | None:
     if not supported(p):
         return None
     r_pad = max(bucket(p.R), TSUB)
-    return _decode(_search([p], r_pad, p.w, dev)[0], p)
+    out = _launch_lane(*pack_perop_batch([p], r_pad), r_pad, p.w, dev)
+    return _decode(out.cpu().numpy()[0], p)
 
 
 def check_packed_batch_mxu(packs: list, device=None) -> list | None:
-    """Check many packed histories with ONE launch per (R-bucket,
-    window-width) group, one block per key. Returns per-pack results
-    aligned with input order; packs the kernel can't take get None
-    entries. Returns None outright when NO pack is supported."""
-    dev = resolve_device(device)
+    """Check many packed histories with one launch per lane per
+    (R-bucket, window-width) chunk, all launched before any readback.
+    Returns per-pack results aligned with input order; packs the kernel
+    can't take get None entries. Returns None outright when NO pack is
+    supported. ``device`` names the one lane; None spreads the keys
+    over every visible card (``batch_lanes``, which raises without
+    one)."""
+    batch_lanes(device)
     if not packs or not any(supported(p) for p in packs):
         return None
-    groups: dict = {}
-    for i, p in enumerate(packs):
-        if supported(p):
-            groups.setdefault((max(bucket(p.R), TSUB), p.w), []).append(i)
     results: list = [None] * len(packs)
-    for (r_pad, wk), idxs in groups.items():
-        out = _search([packs[i] for i in idxs], r_pad, wk, dev)
-        for j, i in enumerate(idxs):
-            results[i] = _decode(out[j], packs[i])
+    collect_packed_batch_mxu(launch_packed_batch_mxu(packs, device=device),
+                             results)
     return results

@@ -1,17 +1,19 @@
 """Test helpers shared by the port's tests and ``chip_smoke.py``: a
 random register-history synthesizer (a copy of the reference's
-``tests/test_wgl.py`` ``gen_history``), the reference's
-``_concurrent_writes_history`` (a frontier of C(n, n/2) states), a
-late impossible read that makes a long history invalid near its end
-(``impossible_read_at``), and a watch-history synthesizer with the op
-shape of the reference's ``workloads/watch.py``."""
+``tests/test_wgl.py`` ``gen_history``), keyed (independent) register
+histories built from it (the reference's ``tests/test_batch.py``
+``keyed`` / ``multi_key_history``, and ``keyed_register_history``), the
+reference's ``_concurrent_writes_history`` (a frontier of C(n, n/2)
+states), a late impossible read that makes a long history invalid near
+its end (``impossible_read_at``), and a watch-history synthesizer with
+the op shape of the reference's ``workloads/watch.py``."""
 
 from __future__ import annotations
 
 import itertools
 import random
 
-from .core.history import History
+from .core.history import History, columns_of
 from .core.op import Op
 
 
@@ -104,6 +106,47 @@ def gen_history(rng: random.Random, n_procs=4, n_ops=20, values=3,
                             else v[1]
                 ops.append(Op(type="ok", process=p, f=f, value=v))
     return History(ops)
+
+
+def keyed(history, key, p_base) -> list:
+    """Wrap a per-key history into (key, v) tuple values with disjoint
+    process ids, as jepsen.independent records them (indices cleared,
+    so the keyed history numbers its ops afresh)."""
+    return [op.evolve(value=(key, op.get("value")),
+                      process=op.get("process") + p_base, index=None)
+            for op in history]
+
+
+def multi_key_history(n_keys, rng, corrupt_keys=(), info_rate=0.0):
+    """n_keys small keys (3 processes, 18 ops each) in one history."""
+    ops = []
+    for k in range(n_keys):
+        sub = gen_history(rng, n_procs=3, n_ops=18,
+                          corrupt=(k in corrupt_keys), info_rate=info_rate)
+        ops.extend(keyed(sub, k, 100 * k))
+    return History(ops)
+
+
+def keyed_register_history(n_keys=32, n_ops=2_000, n_procs=10, seed=2026,
+                           faulted=(3, 11, 19, 27), info_rate=0.01,
+                           corrupted=(7,)) -> History:
+    """A register-workload history over ``n_keys`` keys, each worked by
+    ``n_procs`` processes for ``n_ops`` ops (the reference's register
+    test at ``--ops-per-key``; 2n = 10 threads a key on 5 nodes): key k
+    is ``gen_history(random.Random(seed + k), n_procs, n_ops)`` with
+    processes offset by 100 k; ``faulted`` keys complete some ops :info
+    at ``info_rate``, ``corrupted`` keys misreport some observations.
+    Each op carries its position as ``time`` and the history carries SoA
+    columns, as a recorded run's does."""
+    ops = []
+    for k in range(n_keys):
+        sub = gen_history(random.Random(seed + k), n_procs=n_procs,
+                          n_ops=n_ops, corrupt=k in corrupted,
+                          info_rate=info_rate if k in faulted else 0.0)
+        ops.extend(keyed(sub, k, 100 * k))
+    ops = [op.evolve(time=t) for t, op in enumerate(ops)]
+    h = History(ops)
+    return History(h.ops, columns=columns_of(h.ops))
 
 
 def concurrent_writes_history(n=16, read_val=1, read_ver=None) -> History:

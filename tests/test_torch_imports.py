@@ -21,9 +21,13 @@ PORT_MODULES = [
     "jepsen_etcd_tpu_torch.models",
     "jepsen_etcd_tpu_torch.checkers",
     "jepsen_etcd_tpu_torch.checkers.core",
+    "jepsen_etcd_tpu_torch.checkers.independent",
     "jepsen_etcd_tpu_torch.checkers.linearizable",
+    "jepsen_etcd_tpu_torch.checkers.session",
     "jepsen_etcd_tpu_torch.checkers.tpu_linearizable",
     "jepsen_etcd_tpu_torch.checkers.watch",
+    "jepsen_etcd_tpu_torch.generators",
+    "jepsen_etcd_tpu_torch.generators.independent",
     "jepsen_etcd_tpu_torch.ops",
     "jepsen_etcd_tpu_torch.ops.common",
     "jepsen_etcd_tpu_torch.ops.edit_distance",
@@ -107,17 +111,31 @@ def _watch_history():
                     for p in (0, 1) for t in ("invoke", "ok")])
 
 
+def _launch(p, dev):
+    from jepsen_etcd_tpu_torch.ops import wgl_mxu
+    outs = [None]
+    wgl_mxu.collect_packed_batch_mxu(
+        wgl_mxu.launch_packed_batch_mxu([p], device=dev), outs)
+    return outs[0]
+
+
 @pytest.mark.parametrize("entry", ["resolve_device", "checker",
                                    "check_packed", "check_packed_ladder",
                                    "check_prefix", "check_packed_mxu",
                                    "check_packed_batch_mxu",
+                                   "launch_packed_batch_mxu",
+                                   "check_packed_batch", "check_batch",
+                                   "independent_check",
                                    "watch_checker", "edit_distance_batch"])
 def test_entry_points_raise_without_cuda_unless_cpu(no_cuda, entry):
+    from jepsen_etcd_tpu_torch.checkers.independent import Independent
     from jepsen_etcd_tpu_torch.checkers.tpu_linearizable import \
         TPULinearizableChecker
     from jepsen_etcd_tpu_torch.checkers.watch import WatchChecker
+    from jepsen_etcd_tpu_torch.core.history import History
     from jepsen_etcd_tpu_torch.device import resolve_device
     from jepsen_etcd_tpu_torch.ops import edit_distance, wgl, wgl_mxu
+    from jepsen_etcd_tpu_torch.testing import keyed
     h, p = _tiny_pack()
     call = {
         "resolve_device": lambda dev: resolve_device(dev),
@@ -132,6 +150,15 @@ def test_entry_points_raise_without_cuda_unless_cpu(no_cuda, entry):
             p, device=dev),
         "check_packed_batch_mxu": lambda dev: wgl_mxu.check_packed_batch_mxu(
             [p], device=dev)[0],
+        "launch_packed_batch_mxu": lambda dev: _launch(p, dev),
+        "check_packed_batch": lambda dev: wgl.check_packed_batch(
+            [p, p], f_max=32, device=dev)[0],
+        "check_batch": lambda dev: TPULinearizableChecker(
+            cpu_cutoff=None, device=dev).check_batch({}, {"a": h, "b": h})[
+                "b"],
+        "independent_check": lambda dev: Independent(TPULinearizableChecker(
+            cpu_cutoff=None, device=dev)).check(
+                {}, History(keyed(h, "k", 0) + keyed(h, "j", 10))),
         "watch_checker": lambda dev: WatchChecker(device=dev).check(
             {"concurrency": 2}, _watch_history()),
         "edit_distance_batch": lambda dev: {
