@@ -8,7 +8,7 @@ PyTorch version on the card, drives the port's paths and shows that
 each launched its kernel: single-key linearizability checking of a
 27,000-entry register history through ``TPULinearizableChecker`` (kernel
 wgl_wave), the watch checker on five watchers' logs of 12,000 values
-each (kernel indel_wave), the capacity ladder (PyTorch ops on the
+each (kernel indel_bits), the capacity ladder (PyTorch ops on the
 card, at real size on a 26,992-entry history whose wave-kernel search
 overflows, its waves replayed from CUDA graphs and held against the
 eager loop), the spill BFS and ``check_prefix``, and the keyed register
@@ -39,11 +39,21 @@ ALU32_OPS_PER_S = 67e12
 #: 32-bit integer operations per candidate per wave in wgl_wave.cu's
 #: candidate body (loads, compares, shifts, selects), counted at wk=32
 WGL_OPS_PER_CANDIDATE = 64
-#: 32-bit integer operations per DP cell in indel_wave.cu's lane body:
-#: j = kd - i, the i == 0 / j == 0 tests, two index computations, the
-#: a and b loads and their compare, two diagonal loads, min, +1, select,
-#: the store, and the lane loop's increment and test
-INDEL_OPS_PER_CELL = 16
+#: what indel_bits.cu does a step, counted from its code: four shuffles
+#: take the step's (lo, hi, first, last) from their lane; a step with a
+#: match position adds two ballots (each a warp instruction: 32 lane
+#: operations) and updates its matched words and the one word a carry
+#: stops at, each with V & M, the add of V & M and the carry-in, the
+#: carry-out compare, V & ~M and the or (two 32-bit operations each)
+INDEL_BITS_SHUFFLES_PER_STEP = 4
+INDEL_BITS_BALLOTS_PER_MATCHED_STEP = 2
+INDEL_BITS_OPS_PER_WORD = 10
+#: the operations per DP cell of the anti-diagonal kernel indel_bits
+#: replaced (its lane body: j = kd - i, the i == 0 / j == 0 tests, two
+#: index computations, the a and b loads and their compare, two diagonal
+#: loads, min, +1, select, the store, the lane loop's increment and
+#: test): the old algorithm's work, printed beside the new bound
+DP_OPS_PER_CELL = 16
 
 MAIN_SEED, MAIN_PROCS, MAIN_OPS = 2026, 6, 13_500
 #: the watch cell: 5 writers and 5 watchers (the reference workload's
@@ -241,36 +251,158 @@ def fuzz_indel(seed: int, K: int, n: int, dev):
     return [torch.from_numpy(x).to(dev) for x in (a, b, m)]
 
 
-def hold_indel(a, b, m, what: str, global_scratch=False) -> int:
-    """indel_wave vs its plain version on the same CUDA tensors: exact.
-    ``global_scratch`` reports no shared memory to opt in to, so the
-    diagonals go to the global scratch buffer. Prints the launch's
-    device time (CUDA events, one cold launch)."""
+def wide_indel(seed: int, n: int, dev):
+    """A canonical log of n distinct codes and five short logs against
+    it (m <= 3,000): an edited prefix, a reversed middle run, a sorted
+    sample, a log of codes it lacks, an empty one. At n = 140,000 a lane
+    owns 69 words, so its all-ones bitmap takes two words."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    a = rng.permutation(n).astype(np.int32)
+    prefix = np.delete(a[:3000], rng.choice(3000, 40, replace=False))
+    logs = [prefix, a[n // 2:n // 2 + 2000][::-1],
+            np.sort(rng.choice(n, 2500, replace=False)).astype(np.int32),
+            np.arange(n, n + 700, dtype=np.int32), prefix[:0]]
+    b = np.full((len(logs), 3000), -2, np.int32)
+    for k, x in enumerate(logs):
+        b[k, :len(x)] = x
+    m = np.array([len(x) for x in logs], np.int32)
+    return [torch.from_numpy(x).to(dev) for x in (a, b, m)]
+
+
+def hold_indel(a, b, m, what: str, dp: bool = True) -> int:
+    """indel_bits vs its plain versions on the same CUDA tensors, exact:
+    lcs_bits_reference (the same algorithm) and, with ``dp``,
+    wavefront_reference (the anti-diagonal DP), each computed once, then
+    the kernel with its state in shared memory and, reporting no shared
+    memory to opt in to, in the global scratch. Prints each launch's
+    device time (CUDA events, one cold launch) and the plain versions'
+    host-clock times."""
     import torch
     from jepsen_etcd_tpu_torch.ops import _cuda
     from jepsen_etcd_tpu_torch.ops import edit_distance as ed
+    refs, plain = [], []
+    for fn in (ed.lcs_bits_reference, ed.wavefront_reference)[:1 + dp]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        refs.append(fn(a, b, m).long())
+        torch.cuda.synchronize()
+        plain.append((time.perf_counter() - t0) * 1e3)
+    if not torch.equal(refs[0], refs[-1]):
+        fail(f"the plain versions disagree on {what}")
     optin = _cuda.indel_smem_optin
-    limit = 0 if global_scratch else optin(a.device)
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    if global_scratch:
-        _cuda.indel_smem_optin = lambda dev: 0
-    try:
-        t0.record()
-        got = ed.wavefront(a, b, m)
-        t1.record()
-    finally:
-        _cuda.indel_smem_optin = optin
-    torch.cuda.synchronize()
-    ref = ed.wavefront_reference(a, b, m)
-    err = int((got.long() - ref.long()).abs().max()) if len(got) else 0
-    regime = "shared" if 3 * (a.shape[0] + 1) * 4 <= limit else "global"
-    print(f"  {what}: K={b.shape[0]} n={a.shape[0]} max m="
-          f"{int(m.max()) if len(m) else 0} diagonals in {regime} memory "
-          f"max_abs_err={err} ({t0.elapsed_time(t1):.3f} ms)", flush=True)
-    if err != 0:
-        fail(f"indel_wave disagrees with its plain version on {what}")
+    words = _cuda.indel_state_words(a.shape[0])
+    err = 0
+    for forced in (False, True):
+        limit = 0 if forced else optin(a.device)
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        if forced:
+            _cuda.indel_smem_optin = lambda dev: 0
+        try:
+            t0.record()
+            got = ed.wavefront(a, b, m)
+            t1.record()
+        finally:
+            _cuda.indel_smem_optin = optin
+        torch.cuda.synchronize()
+        e = max(int((got.long() - r).abs().max()) for r in refs) \
+            if len(got) else 0
+        regime = "shared" if words * 8 <= limit else "global"
+        print(f"  {what}: K={b.shape[0]} n={a.shape[0]} max m="
+              f"{int(m.max()) if len(m) else 0} V in {regime} memory "
+              f"max_abs_err={e} ({t0.elapsed_time(t1):.3f} ms; plain "
+              f"lcs_bits {plain[0]:.1f} ms"
+              + (f", wavefront {plain[1]:.1f} ms)" if dp else ")"),
+              flush=True)
+        if e != 0:
+            fail(f"indel_bits disagrees with its plain versions on {what} "
+                 f"({regime} memory)")
+        err = max(err, e)
     return err
+
+
+def indel_kernel_ms(a, b, m, reps: int, regime: str = "shared") -> float:
+    """Median device time of indel_bits' launch alone, its state in
+    shared memory or (``regime="global"``) in a global scratch buffer,
+    the match index built once outside the timed calls and the binding
+    called directly (no count)."""
+    import torch
+    from jepsen_etcd_tpu_torch.ops import _cuda
+    from jepsen_etcd_tpu_torch.ops import edit_distance as ed
+    order, lo, hi = ed.match_index(a, b)
+    out = torch.empty(b.shape[0], dtype=torch.int32, device=a.device)
+    scratch = None if regime == "shared" else torch.empty(
+        (b.shape[0], _cuda.indel_state_words(a.shape[0])),
+        dtype=torch.int64, device=a.device)
+    return cuda_ms(lambda: _cuda.indel_bits(order, lo, hi, m, out, scratch),
+                   reps)
+
+
+def indel_regimes(a, b, m, what: str, card: str) -> dict:
+    """indel_bits' launch alone with its state in shared and in global
+    memory: two medians of 11 for each, the regimes alternating, and the
+    median of the two."""
+    times = {"shared": [], "global": []}
+    for i in range(2):
+        for regime in sorted(times, reverse=i == 1):
+            times[regime].append(indel_kernel_ms(a, b, m, 11, regime))
+    ms = {r: statistics.median(t) for r, t in times.items()}
+    print(f"  {what} on {card}: indel_bits alone, state in shared memory "
+          f"{ms['shared']:.3f} ms {times['shared']}, in global memory "
+          f"{ms['global']:.3f} ms {times['global']} (global / shared "
+          f"{ms['global'] / ms['shared']:.3f})", flush=True)
+    return ms
+
+
+def indel_work(a, b, m) -> dict:
+    """What indel_bits does on these inputs, counted from the match
+    index: steps (the sum of m_k), matched steps (those with a match
+    position), the words those change (the distinct words of their
+    positions), the operations (INDEL_BITS_* above) and, to compare, the
+    word-steps of the dense bit-parallel pass (sum of m_k * ceil(n /
+    64))."""
+    import torch
+    from jepsen_etcd_tpu_torch.ops import edit_distance as ed
+    dev = a.device
+    order, lo, hi = ed.match_index(a, b)
+    live = torch.arange(b.shape[1], device=dev)[None, :] < m[:, None]
+    cnt = torch.where(live, hi - lo, 0).reshape(-1).long()
+    total = int(cnt.sum())
+    step = torch.repeat_interleave(torch.arange(cnt.numel(), device=dev),
+                                   cnt, output_size=total)
+    first = torch.cumsum(cnt, 0) - cnt
+    word = order.long()[lo.reshape(-1).long()[step]
+                        + torch.arange(total, device=dev) - first[step]] >> 6
+    new = torch.ones(total, dtype=torch.bool, device=dev)
+    new[1:] = (step[1:] != step[:-1]) | (word[1:] != word[:-1])
+    steps, matched, words = int(m.sum()), int((cnt > 0).sum()), int(new.sum())
+    ops = (steps * INDEL_BITS_SHUFFLES_PER_STEP * 32
+           + matched * (INDEL_BITS_BALLOTS_PER_MATCHED_STEP * 32
+                        + INDEL_BITS_OPS_PER_WORD)
+           + words * INDEL_BITS_OPS_PER_WORD)
+    dense = steps * -(-a.shape[0] // 64)
+    # the function's bytes: a, the logs' live codes and m read, out written
+    bytes_ms = 4 * (a.shape[0] + steps + 2 * m.shape[0]) \
+        / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / ALU32_OPS_PER_S * 1e3
+    return {"steps": steps, "matched": matched, "words": words, "ops": ops,
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms), "dense_word_steps": dense,
+            "dense_ms": dense * INDEL_BITS_OPS_PER_WORD
+            / ALU32_OPS_PER_S * 1e3}
+
+
+def work_text(w: dict) -> str:
+    return (f"bound {w['bound_ms']:.6f} ms (operations {w['ops_ms']:.6f} ms:"
+            f" {w['steps']} steps, {w['matched']} with a match, "
+            f"{w['words']} words changed, {w['ops']} operations; bytes "
+            f"{w['bytes_ms']:.6f} ms); the kernel is limited by its chain "
+            f"of dependent steps, not by either; the dense bit-parallel "
+            f"pass would do {w['dense_word_steps']} word-steps, "
+            f"{w['dense_ms']:.6f} ms at {INDEL_BITS_OPS_PER_WORD} a "
+            f"word-step")
 
 
 def keyed_register_check(card: str) -> list:
@@ -528,7 +660,7 @@ def main() -> None:
     # -- 1. build -----------------------------------------------------
     from concurrent.futures import ThreadPoolExecutor
     t0 = time.perf_counter()
-    sources = ["wgl_wave", "indel_wave"]
+    sources = ["wgl_wave", "indel_bits"]
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(_cuda.build, sources))
     print(f"build: {', '.join(s + '.cu' for s in sources)} (in parallel) "
@@ -569,14 +701,15 @@ def main() -> None:
         gen_history(random.Random(11), n_procs=6, n_ops=2_000))
     max_err = max(max_err, hold(*tables_for([p2k], dev), "one 2k-op key"))
 
-    print("indel_wave vs plain (exact, tolerance 0):", flush=True)
+    print("indel_bits vs plain (exact, tolerance 0):", flush=True)
     ed_err = 0
     for seed, K, n in [(1, 1, 0), (2, 3, 1), (3, 5, 130), (4, 9, 600),
-                       (5, 4, 2000)]:
-        for global_scratch in (False, True):
-            ed_err = max(ed_err, hold_indel(
-                *fuzz_indel(seed, K, n, dev), f"fuzz seed {seed}",
-                global_scratch=global_scratch))
+                       (5, 4, 2000), (7, 3, 12_000)]:
+        ed_err = max(ed_err, hold_indel(*fuzz_indel(seed, K, n, dev),
+                                        f"fuzz seed {seed}"))
+    ed_err = max(ed_err, hold_indel(*wide_indel(6, 140_000, dev),
+                                    "140,000 distinct values, short logs",
+                                    dp=False))
     wbad = gen_watch_history(random.Random(WATCH_SEED),
                              n_writers=WATCH_WRITERS,
                              n_watchers=WATCH_WATCHERS,
@@ -590,9 +723,18 @@ def main() -> None:
                               n_watchers=WATCH_WATCHERS,
                               n_writes=WATCH_LONG_WRITES,
                               corrupt="reorder")
-    ed_err = max(ed_err, hold_indel(*watch_inputs(wlong, wconc, dev)[1],
+    long_in = watch_inputs(wlong, wconc, dev)[1]
+    ed_err = max(ed_err, hold_indel(*long_in,
                                     "long watch logs, one corrupted"))
-    del wlong
+    long_ms = cuda_ms(lambda: ed.wavefront(*long_in), 11)
+    long_kernel_ms = indel_regimes(*long_in, "long watch logs",
+                                   card)["shared"]
+    long_steps = int(long_in[2].max())
+    print(f"  long watch logs on {card}: indel_bits {long_ms:.3f} ms "
+          f"through wavefront (median of 11), {long_steps} steps, "
+          f"{long_kernel_ms * 1e3 / long_steps:.4f} us a step alone; "
+          f"{work_text(indel_work(*long_in))}", flush=True)
+    del wlong, long_in
 
     # -- 3. the main path at full size --------------------------------
     h = gen_history(random.Random(MAIN_SEED), n_procs=MAIN_PROCS,
@@ -735,7 +877,7 @@ def main() -> None:
     if wres.get("valid?") is not True:
         fail(f"watch path verdict {wres}")
     if watch_launches < 1 or watch_launches_bad < 1:
-        fail("the watch path did not launch indel_wave")
+        fail("the watch path did not launch indel_bits")
     full, (wa, wb, wm), canonical = watch_inputs(wbad, wconc, dev)
     plain_d = dict(zip(full, ed.wavefront_reference(wa, wb, wm).tolist()))
     deltas = {d["thread"]: d["edit-distance"]
@@ -772,6 +914,7 @@ def main() -> None:
     print("watch path stages (s): " + ", ".join(
         f"{k} {v:.4f}" for k, v in wstages.items()), flush=True)
     b2_ms = cuda_ms(lambda: ed.wavefront(wa, wb, wm), 11)
+    b2_kernel_ms = indel_regimes(wa, wb, wm, "watch logs", card)["shared"]
     wwalls = []
     for _ in range(21):
         t0 = time.perf_counter()
@@ -779,31 +922,35 @@ def main() -> None:
         wwalls.append(time.perf_counter() - t0)
     wwalls.sort()
     wmed, wp90 = wwalls[10], wwalls[18]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    b2_ref = ed.wavefront_reference(wa, wb, wm)
-    torch.cuda.synchronize()
-    b2_plain_ms = (time.perf_counter() - t0) * 1e3
-    got = ed.wavefront(wa, wb, wm)
-    b2_err = int((got.long() - b2_ref.long()).abs().max())
-    ed_err = max(ed_err, b2_err)
-    if b2_err != 0:
-        fail("indel_wave disagrees with its plain version on the watch "
-             "path")
+    b2_plain = {}
+    for name, fn in (("lcs_bits", ed.lcs_bits_reference),
+                     ("wavefront", ed.wavefront_reference)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b2_ref = fn(wa, wb, wm)
+        torch.cuda.synchronize()
+        b2_plain[name] = (time.perf_counter() - t0) * 1e3
+        got = ed.wavefront(wa, wb, wm)
+        b2_err = int((got.long() - b2_ref.long()).abs().max())
+        ed_err = max(ed_err, b2_err)
+        if b2_err != 0:
+            fail(f"indel_bits disagrees with {name} on the watch path")
+    b2_plain_ms = b2_plain["lcs_bits"]
     n_can = wa.shape[0]
+    steps = int(wm.max())
+    b2_work = indel_work(wa, wb, wm)
     cells = sum((n_can + 1) * (int(x) + 1) for x in wm.tolist())
-    steps = max(n_can + int(x) + 1 for x in wm.tolist())
-    b2_bytes_ms = 4 * (n_can + int(wm.sum()) + 2 * wm.shape[0]) \
-        / HBM_BYTES_PER_S * 1e3
-    b2_ops_ms = cells * INDEL_OPS_PER_CELL / ALU32_OPS_PER_S * 1e3
-    b2_bound_ms = max(b2_bytes_ms, b2_ops_ms)
+    dp_bound_ms = cells * DP_OPS_PER_CELL / ALU32_OPS_PER_S * 1e3
     print(f"watch path timing on {card}: check wall over {len(wwalls)} "
-          f"runs median {wmed:.4f} s, p90 {wp90:.4f} s; indel_wave "
-          f"{b2_ms:.3f} ms ({b2_ms * 1e3 / steps:.3f} us per diagonal, "
-          f"{steps} diagonals, {cells} cells), plain {b2_plain_ms:.1f} "
-          f"ms, bound {b2_bound_ms:.4f} ms (bytes {b2_bytes_ms:.6f} ms, "
-          f"operations {b2_ops_ms:.4f} ms); device idle share "
-          f"{1 - b2_ms / 1e3 / wmed:.3f} (1 - kernel / median check)",
+          f"runs median {wmed:.4f} s, p90 {wp90:.4f} s; indel_bits "
+          f"{b2_ms:.3f} ms through wavefront (index and launch), kernel "
+          f"alone {b2_kernel_ms:.3f} ms (medians of 11), "
+          f"{b2_kernel_ms * 1e3 / steps:.4f} us a step, {steps} steps; "
+          f"plain lcs_bits {b2_plain['lcs_bits']:.1f} ms, plain wavefront "
+          f"{b2_plain['wavefront']:.1f} ms; {work_text(b2_work)}; the old "
+          f"algorithm's work, {cells} DP cells at {DP_OPS_PER_CELL} "
+          f"operations: {dp_bound_ms:.4f} ms; device idle share "
+          f"{1 - b2_ms / 1e3 / wmed:.3f} (1 - indel_bits / median check)",
           flush=True)
 
     # -- 6. the capacity ladder, the spill BFS and check_prefix ----------
@@ -905,12 +1052,14 @@ def main() -> None:
         "ms": kern_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None}, {
-        "name": "indel_wave", "route": "cuda",
-        "source": "jepsen_etcd_tpu_torch/csrc/indel_wave.cu",
+        "name": "indel_bits", "route": "cuda",
+        "source": "jepsen_etcd_tpu_torch/csrc/indel_bits.cu",
         "replaces": "jepsen_etcd_tpu/ops/edit_distance.py:90",
         "launches": watch_launches, "max_abs_err": ed_err,
-        "ms": b2_ms, "plain_ms": b2_plain_ms, "bound_ms": b2_bound_ms,
-        "bound_by": "bytes" if b2_bytes_ms >= b2_ops_ms else "operations",
+        "ms": b2_ms, "plain_ms": b2_plain_ms,
+        "bound_ms": b2_work["bound_ms"],
+        "bound_by": "bytes" if b2_work["bytes_ms"] >= b2_work["ops_ms"]
+        else "operations",
         "library_ms": None}] + batch_entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -85,9 +85,10 @@ def _check(lib: ctypes.CDLL, name: str, err: int) -> None:
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _WGL = {"wgl_wave_launch": (_I, [_P, _P, _P, _I, _I, _I, _P])}
-_INDEL = {"indel_wave_launch": (_I, [_P, _I, _P, _I, _P, _P, _I, _P, _I,
-                                     _I, _P]),
-          "indel_wave_smem_optin": (_I, [_I])}
+_INDEL = {"indel_bits_launch": (_I, [_P, _I, _P, _P, _I, _P, _P, _I, _P,
+                                     ctypes.c_longlong, _P]),
+          "indel_bits_smem_optin": (_I, [_I]),
+          "indel_bits_state_words": (ctypes.c_longlong, [_I])}
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -109,26 +110,35 @@ def wgl_wave(tab: torch.Tensor, scal: torch.Tensor, out: torch.Tensor,
 
 def indel_smem_optin(device: torch.device) -> int:
     """Bytes of dynamic shared memory one block may opt in to."""
-    lib = _lib("indel_wave", _INDEL)
+    lib = _lib("indel_bits", _INDEL)
     index = torch.device(device).index
-    got = lib.indel_wave_smem_optin(
+    got = lib.indel_bits_smem_optin(
         torch.cuda.current_device() if index is None else index)
     if got < 0:
         raise RuntimeError("cudaDeviceGetAttribute failed")
     return got
 
 
-def indel_wave(a: torch.Tensor, b: torch.Tensor, m: torch.Tensor,
-               out: torch.Tensor, scratch, threads: int) -> None:
-    """Launch csrc/indel_wave.cu on the current stream: a [n], b [K,
-    LB], m [K] -> out [K], all int32 on one CUDA device; ``scratch`` is
-    a [K, 3, n + 1] int32 tensor for the global-memory regime, or None
-    for the shared-memory one (the caller checks shapes and sizes)."""
-    lib = _lib("indel_wave", _INDEL)
-    with torch.cuda.device(a.device):
-        err = lib.indel_wave_launch(
-            a.data_ptr(), a.shape[0], b.data_ptr(), b.shape[1],
-            m.data_ptr(), out.data_ptr(), b.shape[0],
+def indel_state_words(n: int) -> int:
+    """64-bit words of indel_bits.cu's state for one log against a
+    canonical log of n codes (the kernel's layout, read from the
+    kernel's source): the size of the log's slice of the global scratch
+    (times 8: the bytes of shared memory it takes)."""
+    return int(_lib("indel_bits", _INDEL).indel_bits_state_words(n))
+
+
+def indel_bits(order: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+               m: torch.Tensor, out: torch.Tensor, scratch) -> None:
+    """Launch csrc/indel_bits.cu on the current stream: order [n], lo
+    and hi [K, LB], m [K] -> out [K], all int32 on one CUDA device;
+    ``scratch`` is a [K, indel_state_words(n)] int64 tensor for the
+    global-memory regime (the launch refuses another width), or None for
+    the shared-memory one (the caller checks shapes)."""
+    lib = _lib("indel_bits", _INDEL)
+    with torch.cuda.device(order.device):
+        err = lib.indel_bits_launch(
+            order.data_ptr(), order.shape[0], lo.data_ptr(), hi.data_ptr(),
+            lo.shape[1], m.data_ptr(), out.data_ptr(), lo.shape[0],
             None if scratch is None else scratch.data_ptr(),
-            int(scratch is None), threads, _stream(a))
-    _check(lib, "indel_wave", err)
+            0 if scratch is None else scratch.shape[1], _stream(order))
+    _check(lib, "indel_bits", err)

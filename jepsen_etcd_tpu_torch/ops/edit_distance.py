@@ -1,18 +1,20 @@
-"""Indel edit distance for the watch checker: the anti-diagonal wavefront
-on the card (the port of the reference's ``ops/edit_distance.py``).
+"""Indel edit distance for the watch checker: a bit-parallel LCS on the
+card (the port of the reference's ``ops/edit_distance.py``).
 
 The reference's watch checker measures per-thread log divergence with
 clj-diff (``watch.clj:328-357``): *indel* edit distance (insertions +
-deletions, no substitution), ``ed = n + m - 2*LCS``. The O(n*m) DP has
-a sequential dependency along rows but none along anti-diagonals, so the
-device form sweeps diagonals: diagonal k holds D[i, k-i] for all i,
-computed elementwise from diagonals k-1 and k-2.
+deletions, no substitution), ``ed = n + m - 2*LCS``. The reference's
+kernel sweeps the O(n*m) DP's anti-diagonals; the port computes LCS
+bit-parallel (Allison-Dix; Hyyro): one bit per position of the
+canonical log a, one step per element of a log, and a step is a
+multi-word add whose carries run across the whole row.
 
-Two versions of the sweep take the same arguments: ``wavefront``
-launches the hand-written CUDA kernel (csrc/indel_wave.cu, one block per
-log) for CUDA tensors, and ``wavefront_reference`` is its plain PyTorch
-version (the tests' and the CPU's path; it is also the reference's XLA
-form ``_indel_device_batch``). Logs shorter than ``CPU_CUTOFF`` take the
+Three versions take the same arguments: ``wavefront`` launches the
+hand-written CUDA kernel (csrc/indel_bits.cu, one warp per log) for
+CUDA tensors; ``lcs_bits_reference`` is its plain PyTorch version (the
+tests' and the CPU's path); ``wavefront_reference`` is the DP over
+anti-diagonals (the reference's XLA form ``_indel_device_batch``), kept
+as an independent check. Logs shorter than ``CPU_CUTOFF`` take the
 Python DP, as in the reference.
 """
 
@@ -31,21 +33,24 @@ CPU_CUTOFF = 128
 
 INF = 2 ** 30
 
-#: a block's threads; fewer for short canonical logs
-THREADS = 1024
+#: bits of a word of the plain version's bit vector (int64 tensors
+#: holding uint32 words, as ops/wgl.py carries them)
+_WBITS = 32
+_M32 = 0xFFFFFFFF
 
-#: launches of the CUDA wavefront kernel in this process (the wrapper
+#: launches of the CUDA LCS kernel in this process (the wrapper
 #: adds one per launch; a caller may reset it to 0 to count one run)
 LAUNCHES = 0
 
 
 def wavefront_reference(a: torch.Tensor, b: torch.Tensor,
                         m: torch.Tensor) -> torch.Tensor:
-    """The plain PyTorch version of the wavefront: a [n] int32 (the
-    canonical log's codes), b [K, LB] int32 (the logs, padded with codes
-    that match nothing), m [K] int32 (the logs' lengths) -> [K] int32,
-    the indel distance of each log to a. Diagonals are [K, n + 1] rows
-    indexed by i; the sweep stops at max(n + m)."""
+    """The DP over anti-diagonals (the reference's algorithm, an
+    independent check of the kernel): a [n] int32 (the canonical log's
+    codes), b [K, LB] int32 (the logs, padded with codes that match
+    nothing), m [K] int32 (the logs' lengths) -> [K] int32, the indel
+    distance of each log to a. Diagonals are [K, n + 1] rows indexed by
+    i; the sweep stops at max(n + m)."""
     dev = a.device
     n = a.shape[0]
     K, LB = b.shape
@@ -78,6 +83,76 @@ def wavefront_reference(a: torch.Tensor, b: torch.Tensor,
     return res.to(torch.int32)
 
 
+def match_index(a: torch.Tensor, b: torch.Tensor):
+    """The sorted index of a that gives each step its match positions,
+    shared by the kernel and its plain version: ``order`` [n] int32, the
+    stable argsort of a (positions ascending within equal codes), and
+    ``lo``, ``hi`` [K, LB] int32, the left and right ``searchsorted`` of
+    each b[k, j] in ``a[order]``. Step (k, j) matches the positions
+    ``order[lo[k, j]:hi[k, j]]``, in ascending order."""
+    order = torch.argsort(a, stable=True)
+    ordered = a[order]
+    lo = torch.searchsorted(ordered, b, out_int32=True)
+    hi = torch.searchsorted(ordered, b, right=True, out_int32=True)
+    return order.to(torch.int32), lo, hi
+
+
+def lcs_bits_reference(a: torch.Tensor, b: torch.Tensor,
+                       m: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of the kernel, same arguments as
+    ``wavefront_reference``. Per log, a bit vector V of n bits (bit i
+    stands for a[i]) starts all ones; step j, with M the bits where
+    a[i] == b[k, j], sets V <- (V + (V & M)) | (V & ~M); LCS is the count
+    of zero bits of V. V is [K, W] uint32 words in int64; a step's
+    carries run across words by generate/propagate: the carry into word
+    w is the generate bit of the nearest word below w whose sum is not
+    all ones. Logs with j >= m_k sit the step out."""
+    dev = a.device
+    n = a.shape[0]
+    K, LB = b.shape
+    i64 = torch.int64
+    m64 = m.to(i64)
+    steps = int(m64.max()) if K else 0
+    if n == 0 or steps == 0:
+        return (n + m64).to(torch.int32)
+    W = -(-n // _WBITS)
+    order, lo, hi = match_index(a, b)
+    # every (step j, log k) match position, step-major, so step j's
+    # positions are the slice ptr[j]:ptr[j + 1]
+    live = torch.arange(LB, device=dev)[None, :] < m64[:, None]
+    cnt = torch.where(live, (hi - lo).to(i64), 0).t().reshape(-1)
+    start = lo.to(i64).t().reshape(-1)
+    total = int(cnt.sum())
+    src = torch.repeat_interleave(torch.arange(LB * K, device=dev), cnt,
+                                  output_size=total)
+    first = torch.cumsum(cnt, 0) - cnt
+    pos = order.to(i64)[start[src] + torch.arange(total, device=dev)
+                        - first[src]]
+    word = (src % K) * W + pos // _WBITS
+    bit = torch.ones_like(pos) << (pos % _WBITS)
+    ptr = [0] + torch.cumsum(cnt.view(LB, K).sum(1), 0).tolist()
+    V = torch.full((K, W), _M32, dtype=i64, device=dev)
+    w_idx = torch.arange(W, device=dev).expand(K, W)
+    none_below = torch.full((K, 1), -1, dtype=i64, device=dev)
+    for j in range(steps):
+        M = torch.zeros(K * W, dtype=i64, device=dev).index_add_(
+            0, word[ptr[j]:ptr[j + 1]], bit[ptr[j]:ptr[j + 1]]).view(K, W)
+        S = V + (V & M)
+        G = S >> _WBITS                                        # generate
+        S = S & _M32
+        stop = torch.where(S == _M32, -1, w_idx)   # words that stop a carry
+        q = torch.cat([none_below, torch.cummax(stop, 1).values[:, :-1]], 1)
+        carry = torch.where(q >= 0, G.gather(1, q.clamp(min=0)), 0)
+        new = ((S + carry) & _M32) | (V & ~M)
+        V = torch.where((j < m64)[:, None], new, V)
+    # zero bits among the low n bits
+    shifts = torch.arange(_WBITS, device=dev)
+    zero = ((~V)[:, :, None] >> shifts) & 1                    # [K, W, 32]
+    valid = (w_idx[0][:, None] * _WBITS + shifts) < n
+    lcs = (zero * valid).sum((1, 2))
+    return (n + m64 - 2 * lcs).to(torch.int32)
+
+
 def _check_wavefront_inputs(a: torch.Tensor, b: torch.Tensor,
                             m: torch.Tensor) -> None:
     if a.dtype != torch.int32 or b.dtype != torch.int32 or \
@@ -92,7 +167,7 @@ def _check_wavefront_inputs(a: torch.Tensor, b: torch.Tensor,
     if not (a.is_contiguous() and b.is_contiguous()
             and m.is_contiguous()):
         raise ValueError("a, b and m must be contiguous")
-    # the kernel reads b[k, j - 1] for j up to m_k: keep it in the row
+    # the kernel reads step j's index for j < m_k: keep it in the row
     if m.numel() and not bool(((m >= 0) & (m <= b.shape[1])).all()):
         raise ValueError(f"log lengths m must lie in [0, {b.shape[1]}]")
 
@@ -101,14 +176,14 @@ def wavefront(a: torch.Tensor, b: torch.Tensor,
               m: torch.Tensor) -> torch.Tensor:
     """The indel distance of each log b_k (its first m_k codes, 0 <= m_k
     <= LB) to a: [K] int32. CUDA tensors go to the hand-written kernel
-    (csrc/indel_wave.cu, one block per log, one launch), with the three
-    diagonals in shared memory when 3 * (n + 1) int32 fit in the card's
-    opt-in limit and in a global scratch buffer otherwise; CPU tensors
-    to ``wavefront_reference``."""
+    (csrc/indel_bits.cu, one warp per log, one launch), with its state
+    (``_cuda.indel_state_words(n)`` words a log) in shared memory when it
+    fits the card's opt-in limit and in a global scratch buffer
+    otherwise; CPU tensors to ``lcs_bits_reference``."""
     global LAUNCHES
     _check_wavefront_inputs(a, b, m)
     if a.device.type == "cpu":
-        return wavefront_reference(a, b, m)
+        return lcs_bits_reference(a, b, m)
     if a.device.type != "cuda":
         raise ValueError(f"unsupported device {a.device}")
     from . import _cuda
@@ -116,13 +191,13 @@ def wavefront(a: torch.Tensor, b: torch.Tensor,
     out = torch.empty(K, dtype=torch.int32, device=a.device)
     if K == 0:
         return out
-    n = a.shape[0]
+    order, lo, hi = match_index(a, b)
+    words = _cuda.indel_state_words(a.shape[0])
     scratch = None
-    if 3 * (n + 1) * 4 > _cuda.indel_smem_optin(a.device):
-        scratch = torch.empty((K, 3, n + 1), dtype=torch.int32,
+    if words * 8 > _cuda.indel_smem_optin(a.device):
+        scratch = torch.empty((K, words), dtype=torch.int64,
                               device=a.device)
-    threads = min(THREADS, max(32, -(-(n + 1) // 32) * 32))
-    _cuda.indel_wave(a, b, m, out, scratch, threads)
+    _cuda.indel_bits(order, lo, hi, m, out, scratch)
     LAUNCHES += 1
     return out
 

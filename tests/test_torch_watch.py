@@ -4,8 +4,8 @@ wavefront and its Python DP), the helpers it routes through, and the
 watch checker's verdict dicts on the shapes of ``tests/test_watch.py``,
 on synthesized watch histories and on a history from the reference's
 own simulator. On the CPU the port's wavefront is its plain PyTorch
-version; the CUDA kernel is held against it on the card (marked
-``cuda``). All values are integers: tolerance 0."""
+version, the bit-parallel LCS; the CUDA kernel is held against it on
+the card (marked ``cuda``). All values are integers: tolerance 0."""
 
 import random
 
@@ -158,7 +158,9 @@ def test_wavefront_on_cpu_tensors_is_the_plain_version():
     canon, logs = _case(9, 3, 150)
     before = ed.LAUNCHES
     t = _tensors(canon, logs)
-    assert torch.equal(ed.wavefront(*t), ed.wavefront_reference(*t))
+    got = ed.wavefront(*t)
+    assert torch.equal(got, ed.lcs_bits_reference(*t))
+    assert torch.equal(got, ed.wavefront_reference(*t))
     assert ed.LAUNCHES == before
 
 
@@ -215,18 +217,31 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("regime", ["shared", "global"])
 def test_cuda_kernel_equals_plain_version(cuda_device, regime, monkeypatch):
-    """Shared-memory diagonals, and (no shared memory to opt in to) the
-    global scratch."""
+    """indel_bits with V in shared memory, and (no shared memory to opt
+    in to) in the global scratch: equal to lcs_bits_reference and to
+    the anti-diagonal DP on small alphabets (at 5,000 codes a lane owns
+    three words, so a step's many positions span words and lanes) and on
+    distinct-value logs, and to the former past 131,072 values (two
+    bitmap words a lane)."""
     if regime == "global":
         from jepsen_etcd_tpu_torch.ops import _cuda
         monkeypatch.setattr(_cuda, "indel_smem_optin", lambda dev: 0)
     before = ed.LAUNCHES
-    for seed, K, n in [(1, 1, 130), (5, 9, 600), (6, 2, 0)]:
-        t = [x.to(cuda_device) for x in _tensors(*_case(seed, K, n))]
+    distinct = list(range(3000))
+    wide = list(range(140_000))
+    cases = [_case(1, 1, 130), _case(5, 9, 600), _case(6, 2, 0),
+             _case(8, 4, 5000),
+             (distinct, [distinct[::2], distinct[5:] + [7], distinct[::-1],
+                         []]),
+             (wide, [wide[:500:3], wide[-400:], wide[70_000:69_000:-1]])]
+    for canon, logs in cases:
+        t = [x.to(cuda_device) for x in _tensors(canon, logs)]
         got = ed.wavefront(*t)
         torch.cuda.synchronize()
-        assert torch.equal(got, ed.wavefront_reference(*t))
-    assert ed.LAUNCHES == before + 3
+        assert torch.equal(got, ed.lcs_bits_reference(*t))
+        if len(canon) < 10_000:
+            assert torch.equal(got, ed.wavefront_reference(*t))
+    assert ed.LAUNCHES == before + len(cases)
 
 
 # -- the checker --------------------------------------------------------
