@@ -15,9 +15,12 @@ eager loop), the spill BFS and ``check_prefix``, and the keyed register
 check: the register workload's checker, ``Independent(Compose({linear,
 session}))``, on 32 keys x 2,000 ops (wgl_wave's batched launch, once on
 the card's one lane and once split over two lanes of it, and the
-batched ladder for the faulted keys). Prints the card's name and power
-limit, a ``{"kernels": [...]}`` line, and last ``{"ok": true, "device":
-...}``.
+batched ladder for the faulted keys). wgl_wave is held on fuzz at
+every window width, unversioned concurrent writes, a 64-key batch, the
+register and ladder-at-real-size histories and the keyed launch, and
+its profiling instantiation prints the SM cycles a wave spends in each
+phase. Prints the card's name and power limit, a ``{"kernels": [...]}``
+line, and last ``{"ok": true, "device": ...}``.
 Exits non-zero, with no result line, when CUDA is unavailable or any
 phase fails. Imports nothing of JAX or of the JAX package.
 """
@@ -151,6 +154,42 @@ def wgl_bound(waves: int, row_bytes: int, keys: int, wk: int):
     ops_ms = (waves * wgl_mxu.F * wk * WGL_OPS_PER_CANDIDATE
               / ALU32_OPS_PER_S * 1e3)
     return max(bytes_ms, ops_ms), bytes_ms, ops_ms
+
+
+def wgl_phases(tab, scal, wk: int, card: str, kern_ms: float) -> None:
+    """The phase split of one wave search (one key): the profiling
+    instantiation of wgl_wave.cu sums, in thread 0 of the block, the SM
+    cycles (clock64) each phase of a wave takes, and counts the
+    frontier's filled states and the kept candidates. Prints them a
+    wave, the kernel's time a wave from ``kern_ms`` (CUDA events, the
+    plain instantiation) and the profiling instantiation's, and the SM
+    clock its cycles and time imply. Fails when the profiling
+    instantiation's result differs from the kernel's."""
+    import torch
+    from jepsen_etcd_tpu_torch.ops import _cuda, wgl_mxu
+    names = _cuda.wgl_wave_phase_names()
+    out = torch.empty((tab.shape[0], 4), dtype=torch.int32, device=tab.device)
+    prof = torch.zeros((tab.shape[0], len(names) + 2), dtype=torch.int64,
+                       device=tab.device)
+    prof_ms = cuda_ms(lambda: _cuda.wgl_wave_profile(tab, scal, out, prof,
+                                                     wk), 5)
+    if not torch.equal(out, wgl_mxu.wave_search(tab, scal, wk)):
+        fail("wgl_wave's profiling instantiation disagrees with the kernel")
+    waves = int(out[0, 3])
+    *cyc, filled, kept = [c / waves for c in prof[0].tolist()]
+    us = kern_ms * 1e3 / waves
+    split = dict(zip(names, cyc))
+    prof_us = prof_ms * 1e3 / waves
+    print(f"wgl_wave phases on {card}: R={int(scal[0, 0, wgl_mxu.S_R])} "
+          f"wk={wk} "
+          f"{waves} waves; SM cycles a wave: " + ", ".join(
+              f"{n} {c:.1f} ({c / sum(cyc):.1%})" for n, c in split.items())
+          + f"; total {sum(cyc):.1f} cycles a wave; kernel {kern_ms:.3f} ms, "
+          f"{us:.4f} us a wave; profiling instantiation {prof_ms:.3f} ms, "
+          f"{prof_us:.4f} us a wave, so an SM clock of "
+          f"{sum(cyc) / prof_us / 1e3:.3f} GHz (the kernel takes "
+          f"{us / prof_us:.3f} of its time); a wave leaves {filled:.3f} filled states "
+          f"and keeps {kept:.3f} candidates on average", flush=True)
 
 
 def lanes_ms(tab, scal, wk: int, n_lanes: int, reps: int) -> float:
@@ -637,6 +676,70 @@ def keyed_register_check(card: str) -> list:
              "ms": two_ms, **entry}]
 
 
+def hold_history(hist, what: str, dev) -> int:
+    """wgl_wave against its plain version on one history's tables."""
+    from jepsen_etcd_tpu_torch.ops import wgl
+    return hold(*tables_for([wgl.pack_register_history(hist)], dev), what)
+
+
+def hold_wgl_fuzz(dev):
+    """wgl_wave held against its plain version on the fuzz: four
+    histories each at wk = 32, 64 and 128, clean and corrupted; twelve
+    histories of unversioned concurrent writes at each width in one
+    launch (one mask, several values: the partial dedupe kills
+    candidates); a batch of 64 keys x 200 ops in one launch and one
+    2k-op key. Returns the largest error (0) and the batch's packs."""
+    from jepsen_etcd_tpu_torch.ops import wgl, wgl_mxu
+    from jepsen_etcd_tpu_torch.testing import (gen_history,
+                                               unversioned_rounds_history)
+    max_err = 0
+    rng = random.Random(7)
+    shapes = {32: dict(n_procs=4, n_ops=40),
+              64: dict(n_procs=16, n_ops=100, dur_scale=20.0),
+              128: dict(n_procs=34, n_ops=130, dur_scale=30.0)}
+    for wk, kw in shapes.items():
+        for corrupt in (False, True):
+            packs = []
+            for _ in range(400):
+                p = wgl.pack_register_history(
+                    gen_history(rng, corrupt=corrupt, **kw))
+                if wgl_mxu.supported(p) and p.w == wk:
+                    packs.append(p)
+                if len(packs) == 4:
+                    break
+            if len(packs) < 4:
+                fail(f"fuzz found too few w={wk} histories")
+            for i, p in enumerate(packs):
+                max_err = max(max_err, hold(
+                    *tables_for([p], dev),
+                    f"fuzz w={wk} corrupt={corrupt} #{i}"))
+    for wk, wide in ((32, 0), (64, 40), (128, 90)):
+        urng = random.Random(11)
+        packs = []
+        for _ in range(12):
+            sizes = [urng.randint(1, 4) for _ in range(urng.randint(4, 8))]
+            if wide:
+                sizes.insert(len(sizes) // 2, wide)
+            packs.append(wgl.pack_register_history(
+                unversioned_rounds_history(urng, sizes)))
+        if any(not wgl_mxu.supported(p) or p.w != wk for p in packs):
+            fail(f"unversioned writes did not pack at w={wk}")
+        max_err = max(max_err, hold(*tables_for(packs, dev),
+                                    f"12 unversioned-write histories w={wk}"))
+    batch = []
+    while len(batch) < 64:
+        p = wgl.pack_register_history(gen_history(
+            rng, n_procs=4, n_ops=200, corrupt=len(batch) % 3 == 0))
+        if wgl_mxu.supported(p) and p.w == 32:
+            batch.append(p)
+    max_err = max(max_err, hold(*tables_for(batch, dev),
+                                "batch of 64 keys x 200 ops"))
+    p2k = wgl.pack_register_history(
+        gen_history(random.Random(11), n_procs=6, n_ops=2_000))
+    max_err = max(max_err, hold(*tables_for([p2k], dev), "one 2k-op key"))
+    return max_err, batch
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -668,39 +771,7 @@ def main() -> None:
 
     # -- 2. kernel vs plain on the card -------------------------------
     print("kernel vs plain (exact, tolerance 0):", flush=True)
-    max_err = 0
-    rng = random.Random(7)
-    shapes = {32: dict(n_procs=4, n_ops=40),
-              64: dict(n_procs=16, n_ops=100, dur_scale=20.0),
-              128: dict(n_procs=34, n_ops=130, dur_scale=30.0)}
-    for wk, kw in shapes.items():
-        for corrupt in (False, True):
-            packs = []
-            for _ in range(400):
-                p = wgl.pack_register_history(
-                    gen_history(rng, corrupt=corrupt, **kw))
-                if wgl_mxu.supported(p) and p.w == wk:
-                    packs.append(p)
-                if len(packs) == 4:
-                    break
-            if len(packs) < 4:
-                fail(f"fuzz found too few w={wk} histories")
-            for i, p in enumerate(packs):
-                max_err = max(max_err, hold(
-                    *tables_for([p], dev),
-                    f"fuzz w={wk} corrupt={corrupt} #{i}"))
-    batch = []
-    while len(batch) < 64:
-        p = wgl.pack_register_history(gen_history(
-            rng, n_procs=4, n_ops=200, corrupt=len(batch) % 3 == 0))
-        if wgl_mxu.supported(p) and p.w == 32:
-            batch.append(p)
-    max_err = max(max_err, hold(*tables_for(batch, dev),
-                                "batch of 64 keys x 200 ops"))
-    p2k = wgl.pack_register_history(
-        gen_history(random.Random(11), n_procs=6, n_ops=2_000))
-    max_err = max(max_err, hold(*tables_for([p2k], dev), "one 2k-op key"))
-
+    max_err, batch = hold_wgl_fuzz(dev)
     print("indel_bits vs plain (exact, tolerance 0):", flush=True)
     ed_err = 0
     for seed, K, n in [(1, 1, 0), (2, 3, 1), (3, 5, 130), (4, 9, 600),
@@ -766,6 +837,8 @@ def main() -> None:
     dfs = check_history(VersionedRegister(), h)
     if dfs["valid?"] is not res["valid?"]:
         fail(f"native DFS disagrees: {dfs}")
+    max_err = max(max_err, hold_history(bad, "register 10k cell, corrupted",
+                                        dev))
 
     # -- 4. timing at the main path's shapes --------------------------
     # one check's stages on the host clock, each ending in a sync
@@ -796,6 +869,7 @@ def main() -> None:
           f"{bbound:.4f} ms (bytes {bbytes_ms:.4f} ms, operations "
           f"{bops_ms:.4f} ms)", flush=True)
     kern_ms = cuda_ms(lambda: wgl_mxu.wave_search(tab, scal, wk), 21)
+    wgl_phases(tab, scal, wk, card, kern_ms)
     # end-to-end: the whole check, repeated (median and p90 of 110)
     walls = []
     for _ in range(110):
@@ -959,6 +1033,8 @@ def main() -> None:
     big_bad = impossible_read_at(big, LADDER_BIG_AT)
     for what, hist, engine in [("valid", big, "mxu-wave"),
                                ("impossible read", big_bad, "jnp-ladder")]:
+        max_err = max(max_err, hold_history(
+            hist, f"ladder at real size, {what}", dev))
         t0 = time.perf_counter()
         out = checker.check({}, hist)
         wall_l = time.perf_counter() - t0

@@ -84,7 +84,10 @@ def _check(lib: ctypes.CDLL, name: str, err: int) -> None:
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_WGL = {"wgl_wave_launch": (_I, [_P, _P, _P, _I, _I, _I, _P])}
+_WGL = {"wgl_wave_launch": (_I, [_P, _P, _P, _I, _I, _I, _P]),
+        "wgl_wave_profile": (_I, [_P, _P, _P, _P, _I, _I, _I, _P]),
+        "wgl_wave_phases": (_I, []),
+        "wgl_wave_phase_name": (ctypes.c_char_p, [_I])}
 _INDEL = {"indel_bits_launch": (_I, [_P, _I, _P, _P, _I, _P, _P, _I, _P,
                                      ctypes.c_longlong, _P]),
           "indel_bits_smem_optin": (_I, [_I]),
@@ -105,6 +108,32 @@ def wgl_wave(tab: torch.Tensor, scal: torch.Tensor, out: torch.Tensor,
         err = lib.wgl_wave_launch(tab.data_ptr(), scal.data_ptr(),
                                   out.data_ptr(), tab.shape[0],
                                   tab.shape[1], wk, _stream(tab))
+    _check(lib, "wgl_wave", err)
+
+
+def wgl_wave_phase_names() -> list:
+    """The phases the profiling instantiation of csrc/wgl_wave.cu times,
+    in the order of its cycle counts."""
+    lib = _lib("wgl_wave", _WGL)
+    return [lib.wgl_wave_phase_name(i).decode()
+            for i in range(lib.wgl_wave_phases())]
+
+
+def wgl_wave_profile(tab: torch.Tensor, scal: torch.Tensor,
+                     out: torch.Tensor, prof: torch.Tensor, wk: int) -> None:
+    """Launch the profiling instantiation of csrc/wgl_wave.cu: the same
+    search into ``out`` [K, 4], and into ``prof`` [K, phases + 2] int64
+    the SM cycles thread 0 of each block spent in each phase, summed
+    over the waves (clock64 at each phase boundary), then the frontier's
+    filled states and the kept candidates, summed over the waves. Not
+    counted in ``wgl_mxu.LAUNCHES``: it is a measurement, not the main
+    path."""
+    lib = _lib("wgl_wave", _WGL)
+    with torch.cuda.device(tab.device):
+        err = lib.wgl_wave_profile(tab.data_ptr(), scal.data_ptr(),
+                                   out.data_ptr(), prof.data_ptr(),
+                                   tab.shape[0], tab.shape[1], wk,
+                                   _stream(tab))
     _check(lib, "wgl_wave", err)
 
 

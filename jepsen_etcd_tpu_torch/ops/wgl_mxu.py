@@ -551,6 +551,9 @@ def wave_search(tab: torch.Tensor, scal: torch.Tensor,
         return wave_search_reference(tab, scal, wk)
     if tab.device.type != "cuda":
         raise ValueError(f"unsupported device {tab.device}")
+    if tab.data_ptr() % 16 or scal.data_ptr() % 16:
+        raise ValueError("tab and scal must be 16-byte aligned: the kernel "
+                         "copies their rows with bulk copies")
     from . import _cuda
     out = torch.empty((tab.shape[0], 4), dtype=torch.int32,
                       device=tab.device)

@@ -4,7 +4,8 @@ random register-history synthesizer (a copy of the reference's
 histories built from it (the reference's ``tests/test_batch.py``
 ``keyed`` / ``multi_key_history``, and ``keyed_register_history``), the
 reference's ``_concurrent_writes_history`` (a frontier of C(n, n/2)
-states), a late impossible read that makes a long history invalid near
+states), rounds of unversioned concurrent ops (one window mask with
+several values, ``unversioned_rounds_history``), a late impossible read that makes a long history invalid near
 its end (``impossible_read_at``), and a watch-history synthesizer with
 the op shape of the reference's ``workloads/watch.py``."""
 
@@ -162,6 +163,29 @@ def concurrent_writes_history(n=16, read_val=1, read_ver=None) -> History:
     ops.append(Op(type="invoke", process=n, f="read", value=[None, None]))
     ops.append(Op(type="ok", process=n, f="read",
                   value=[n if read_ver is None else read_ver, read_val]))
+    return History(ops)
+
+
+def unversioned_rounds_history(rng: random.Random, sizes,
+                               values=4) -> History:
+    """Rounds of mutually concurrent ops, one round after another, with
+    ``sizes[i]`` ops in round i: 3/4 unversioned writes of a random value
+    in 1..values, 1/4 unversioned reads of a random value. A versioned
+    write fixes its place, so in a register history a set of linearized
+    ops fixes the value; here several orders of one set leave different
+    values, and the same write from each gives one successor (what the
+    wave search's partial dedupe removes)."""
+    ops = []
+    proc = 0
+    for k in sizes:
+        batch = [(proc + i, "write" if rng.random() < 0.75 else "read",
+                  rng.randint(1, values)) for i in range(k)]
+        proc += k
+        for p, f, v in batch:
+            ops.append(Op(type="invoke", process=p, f=f,
+                          value=[None, v if f == "write" else None]))
+        for p, f, v in batch:
+            ops.append(Op(type="ok", process=p, f=f, value=[None, v]))
     return History(ops)
 
 

@@ -18,6 +18,8 @@ from jepsen_etcd_tpu.ops import wgl as ref_wgl
 from jepsen_etcd_tpu.ops import wgl_mxu as ref_mxu
 from jepsen_etcd_tpu_torch.core.history import History
 from jepsen_etcd_tpu_torch.ops import wgl, wgl_mxu
+from jepsen_etcd_tpu_torch.testing import (concurrent_writes_history,
+                                           unversioned_rounds_history)
 
 from test_torch_pack import fuzz
 from test_torch_fixtures import one_torch_thread  # noqa: F401
@@ -121,6 +123,22 @@ def test_unsupported_shapes_return_none():
     assert wgl.check_packed(p, device="cpu")["valid?"] == "unknown"
 
 
+def _unversioned_packs(w):
+    """Twelve histories of small rounds of unversioned concurrent ops
+    that pack at width w (a wide round of 40 or 90 widens the window)."""
+    rng = random.Random(11)
+    wide = {32: 0, 64: 40, 128: 90}[w]
+    packs = []
+    for _ in range(12):
+        sizes = [rng.randint(1, 4) for _ in range(rng.randint(4, 8))]
+        if wide:
+            sizes.insert(len(sizes) // 2, wide)
+        packs.append(wgl.pack_register_history(
+            unversioned_rounds_history(rng, sizes)))
+    assert all(wgl_mxu.supported(p) and p.w == w for p in packs)
+    return packs
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -141,4 +159,19 @@ def test_cuda_kernel_equals_plain_version(cuda_device, w):
             torch.cuda.synchronize()
             ref = wgl_mxu.wave_search_reference(tab, scal, w)
             assert torch.equal(got, ref)
-    assert wgl_mxu.LAUNCHES == before + 6
+    # one search that overflows F, alone, and one batched launch of twelve
+    # keys of unversioned concurrent writes (the partial dedupe fires)
+    batch = _unversioned_packs(w)
+    r_pad = max(max(wgl.bucket(p.R), wgl_mxu.TSUB) for p in batch)
+    over = [concurrent_writes_history(12, read_val=9)] if w == 32 else []
+    over = [wgl.pack_register_history(h) for h in over] + [
+        p for p in batch if wgl_mxu.wave_search(
+            *_tables([p], r_pad, w), w)[0, 1]]
+    for packs in (over[:1], batch):
+        tab, scal = _tables(packs, r_pad, w, device=cuda_device)
+        got = wgl_mxu.wave_search(tab, scal, w)
+        torch.cuda.synchronize()
+        ref = wgl_mxu.wave_search_reference(tab, scal, w)
+        assert torch.equal(got, ref)
+        assert ref[:, 1].any() or len(packs) > 1
+    assert wgl_mxu.LAUNCHES == before + 8
