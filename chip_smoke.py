@@ -19,14 +19,21 @@ batched ladder for the faulted keys). wgl_wave is held on fuzz at
 every window width, unversioned concurrent writes, a 64-key batch, the
 register and ladder-at-real-size histories and the keyed launch, and
 its profiling instantiation prints the SM cycles a wave spends in each
-phase. Prints the card's name and power limit, a ``{"kernels": [...]}``
-line, and last ``{"ok": true, "device": ...}``.
+phase. Last comes Elle: the boolean-closure engine (``ops/closure.py``,
+bf16 ``torch.bmm`` squarings) at six 2,048-node planes, held against
+strongly connected components and BFS rows and split over two lanes of
+the card, then ``ListAppendChecker`` and ``RWRegisterChecker`` on 3,731
+committed txns (clean and with an anomaly planted), the card against
+the host, and the closure's crossover. Prints the card's name and
+power limit, a ``{"kernels": [...]}`` line, and last ``{"ok": true,
+"device": ...}``.
 Exits non-zero, with no result line, when CUDA is unavailable or any
 phase fails. Imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import random
@@ -83,6 +90,22 @@ LADDER_SEED = 40
 #: misreports some observations
 KEYED_KEYS, KEYED_OPS, KEYED_PROCS, KEYED_SEED = 32, 2_000, 10, 2026
 KEYED_FAULTED, KEYED_INFO_RATE, KEYED_CORRUPTED = (3, 11, 19, 27), 0.01, (7,)
+#: the Elle cells. The closure at the reference bench's shape: six
+#: 2,048-node planes drawn with RandomState(0) at density 2/N
+#: (bench.py:619-623, "the append checker's shape at ~30 min of
+#: workload"), 64 of its reach rows held against a BFS. The list-append
+#: and rw-register checks at the reference's append bench size, 3,731
+#: committed txns (BENCH_r02.json elle_append_device), 10 processes,
+#: each with one planted anomaly in a corrupted copy; the card against
+#: the host at 500 txns (the host's numpy closure of a 1,000-txn append
+#: history takes over a minute on the H100's host); the closure's
+#: crossover swept over N, the host leg where it serves (N <= CPU_CUTOFF)
+ELLE_B, ELLE_N, ELLE_ROWS = 6, 2_048, 64
+ELLE_TXNS, ELLE_PAIR_TXNS, ELLE_PROCS, ELLE_SEED = 3_731, 500, 10, 2026
+ELLE_PLANTED = {"list-append": "G-single-realtime", "rw-register": "G1c"}
+ELLE_SWEEP = (256, 512, 768, 1024, 2048)
+#: dense bf16 tensor-core peak of the H100 SXM (NVIDIA data sheet)
+BF16_FLOPS_PER_S = 989e12
 
 
 def fail(msg: str) -> None:
@@ -740,6 +763,278 @@ def hold_wgl_fuzz(dev):
     return max_err, batch
 
 
+class SpanLog:
+    """A telemetry recorder that keeps (name, attrs) of every span, to
+    show which route a check's closure took."""
+
+    def __init__(self):
+        self.spans = []
+
+    @contextlib.contextmanager
+    def span(self, name, **attrs):
+        self.spans.append((name, attrs))
+        yield
+
+
+def elle_check(checker, history) -> tuple:
+    """One Elle check with its stages on the host clock: (result,
+    stages, spans). "closure" is closure_levels_lazy (the level stack
+    built and squared on the card, on_cycle copied back), "certificates"
+    the rest of find_cycles (anchored BFS over the edges, reach copied
+    back on an invalid history), "collect and graph" the rest of the
+    check."""
+    import torch
+    from jepsen_etcd_tpu_torch.checkers.elle import graph
+    from jepsen_etcd_tpu_torch.runner import telemetry
+    find_cycles, levels = graph.DepGraph.find_cycles, \
+        graph.closure_levels_lazy
+    t = {}
+
+    def timed(name, fn):
+        def run(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                t[name] = time.perf_counter() - t0
+        return run
+    log = SpanLog()
+    graph.DepGraph.find_cycles = timed("find_cycles", find_cycles)
+    graph.closure_levels_lazy = timed("closure", levels)
+    telemetry.set_thread_current(log)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = checker.check({}, history)
+        wall = time.perf_counter() - t0
+    finally:
+        telemetry.set_thread_current(None)
+        graph.DepGraph.find_cycles, graph.closure_levels_lazy = \
+            find_cycles, levels
+    stages = {"collect and graph": wall - t["find_cycles"],
+              "closure": t["closure"],
+              "certificates": t["find_cycles"] - t["closure"],
+              "wall": wall}
+    return res, stages, log.spans
+
+
+def stage_text(stages: dict) -> str:
+    return ", ".join(f"{k} {v:.4f}" for k, v in stages.items())
+
+
+def elle_closure_at_scale(card: str, dev) -> dict:
+    """The closure at 6 x 2,048 on the card: on_cycle held against the
+    strongly connected components (scipy) of every plane, 64 sampled
+    reach rows against a BFS, the squaring step against its plain
+    float32 version, the card's time for one squaring and for the whole
+    closure, and the same stack split over two lanes of the card.
+    Returns the kernels line's numbers for the squaring."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+    from scipy.sparse.csgraph import breadth_first_order, \
+        connected_components
+    from jepsen_etcd_tpu_torch.ops import closure, wgl_mxu
+    B, N = ELLE_B, ELLE_N
+    a = np.random.RandomState(0).rand(B, N, N) < (2.0 / N)
+    iters = int(np.ceil(np.log2(N)))
+    a_dev = torch.from_numpy(a).to(dev)
+    closure._closure_device(a_dev, iters)   # warm-up
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    e0.record()
+    reach, on_cycle, sq = closure._closure_device(a_dev, iters)
+    e1.record()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    closure_ms = e0.elapsed_time(e1)
+    reach_h, cyc_h = reach.cpu().numpy(), on_cycle.cpu().numpy()
+    # the host check: a node is on a cycle iff its strongly connected
+    # component has two or more nodes, or it has a self-loop
+    scc_bad = 0
+    for b in range(B):
+        g = sp.csr_matrix(a[b])
+        _, labels = connected_components(g, directed=True,
+                                         connection="strong")
+        want = (np.bincount(labels)[labels] >= 2) | a[b].diagonal()
+        scc_bad += int((want != cyc_h[b]).sum())
+    pick = np.random.RandomState(1)
+    bfs_bad = 0
+    for _ in range(ELLE_ROWS):
+        b, i = int(pick.randint(B)), int(pick.randint(N))
+        want = np.zeros(N, bool)
+        want[breadth_first_order(sp.csr_matrix(a[b]), i, directed=True,
+                                 return_predecessors=False)] = True
+        bfs_bad += int((want != reach_h[b, i]).sum())
+    # one squaring: the step (_square), torch.bmm alone, the plain
+    # float32 step, on the same R
+    r = (a_dev | torch.eye(N, dtype=torch.bool, device=dev)).to(
+        torch.bfloat16)
+    r32 = r.float()
+    step = closure._square(r, r)
+    plain = (torch.bmm(r32, r32) > 0).float()
+    step_err = int((step.float() - plain).abs().max())
+    sq_ms = cuda_ms(lambda: closure._square(r, r), 11)
+    bmm_ms = cuda_ms(lambda: torch.bmm(r, r), 11)
+    plain_ms = cuda_ms(lambda: (torch.bmm(r32, r32) > 0).float(), 11)
+    flops = 2 * B * N ** 3
+    sq_ops_ms = flops / BF16_FLOPS_PER_S * 1e3
+    sq_bytes_ms = 2 * B * N * N * 2 / HBM_BYTES_PER_S * 1e3
+    run_ops_ms = sq * sq_ops_ms
+    run_bytes_ms = (2 * B * N * N + B * N) / HBM_BYTES_PER_S * 1e3
+    print(f"closure at {B} x {N} on {card}: {sq} squarings run of "
+          f"{iters} bound; whole closure {closure_ms:.3f} ms on the card "
+          f"(CUDA events; host clock {wall_ms:.3f} ms), "
+          f"{flops * sq / closure_ms / 1e9:.1f} TFLOP/s over the "
+          f"squarings run; bound {max(run_ops_ms, run_bytes_ms):.4f} ms "
+          f"(operations {run_ops_ms:.4f} ms at {B} x {sq} x 2 x {N}^3 bf16, "
+          f"bytes {run_bytes_ms:.4f} ms); one squaring {sq_ms:.3f} ms "
+          f"({flops / sq_ms / 1e9:.1f} TFLOP/s), torch.bmm alone "
+          f"{bmm_ms:.3f} ms, plain float32 squaring {plain_ms:.3f} ms, "
+          f"bound {max(sq_ops_ms, sq_bytes_ms):.4f} ms (operations "
+          f"{sq_ops_ms:.4f}, bytes {sq_bytes_ms:.4f}); on_cycle against "
+          f"the SCCs: {scc_bad} nodes differ; {ELLE_ROWS} reach rows "
+          f"against BFS: {bfs_bad} entries differ; squaring against its "
+          f"plain version max_abs_err {step_err}; "
+          f"{int(cyc_h.sum())} of {B * N} nodes on a cycle", flush=True)
+    if scc_bad or bfs_bad or step_err:
+        fail("the closure disagrees with the host check or its plain "
+             "version")
+    # the rows split over two lanes of the card, through closure_batch
+    one_lane = wgl_mxu.batch_lanes
+    got = {}
+    for name, lanes in (("one lane", one_lane),
+                        ("two lanes", lambda device=None: [dev, dev])):
+        wgl_mxu.batch_lanes = lanes
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got[name] = closure.closure_batch(a, force_device=True)
+            got[name + " s"] = time.perf_counter() - t0
+        finally:
+            wgl_mxu.batch_lanes = one_lane
+    same = all(np.array_equal(x, y) for x, y in
+               zip(got["one lane"], got["two lanes"]))
+    print(f"closure at {B} x {N} over two lanes of the card (rows split, "
+          f"blocks gathered each squaring): {got['two lanes s']:.3f} s "
+          f"through closure_batch, one lane {got['one lane s']:.3f} s; "
+          f"same reach and on_cycle: {same}", flush=True)
+    if not same or not np.array_equal(got["one lane"][0], reach_h):
+        fail("the closure over two lanes differs from one lane")
+    return {"ms": sq_ms, "library_ms": bmm_ms, "plain_ms": plain_ms,
+            "bound_ms": max(sq_ops_ms, sq_bytes_ms),
+            "bound_by": "operations" if sq_ops_ms >= sq_bytes_ms
+            else "bytes", "max_abs_err": max(step_err, scc_bad, bfs_bad)}
+
+
+def elle_phase(card: str, dev) -> list:
+    """The port's Elle path on the card: the closure at scale, the
+    list-append and rw-register checks at 3,731 committed txns, clean
+    and with an anomaly planted (the main path of this phase: the
+    closure's launches are counted around the clean list-append check),
+    the card against the host at 500 txns, and the closure's crossover.
+    Returns the kernels line's entry."""
+    import numpy as np
+    import torch
+    from jepsen_etcd_tpu_torch.checkers.elle import (ListAppendChecker,
+                                                     RWRegisterChecker)
+    from jepsen_etcd_tpu_torch.ops import closure
+    from jepsen_etcd_tpu_torch.testing import gen_append_history, \
+        gen_wr_history
+    sq = elle_closure_at_scale(card, dev)
+    launches = None
+    for kind, gen, cls in (("list-append", gen_append_history,
+                            ListAppendChecker),
+                           ("rw-register", gen_wr_history,
+                            RWRegisterChecker)):
+        t0 = time.perf_counter()
+        planted = ELLE_PLANTED[kind]
+        h = gen(random.Random(ELLE_SEED), ELLE_PROCS, ELLE_TXNS)
+        bad = gen(random.Random(ELLE_SEED), ELLE_PROCS, ELLE_TXNS,
+                  corrupt=planted)
+        made = time.perf_counter() - t0
+        checker = cls()
+        closure.LAUNCHES = 0
+        res, stages, spans = elle_check(checker, h)
+        if launches is None:
+            launches = closure.LAUNCHES
+        print(f"elle {kind}: {ELLE_TXNS} txns, {len(h)} entries (made in "
+              f"{made:.2f} s) -> valid?={res['valid?']} committed="
+              f"{res['committed-count']} closure squarings launched "
+              f"{closure.LAUNCHES}; spans {spans}; stages (s): "
+              f"{stage_text(stages)}", flush=True)
+        if res["valid?"] is not True or res["committed-count"] != ELLE_TXNS:
+            fail(f"elle {kind}: {res['anomaly-types']}")
+        if [n for n, _ in spans] != ["closure.device"] or \
+                closure.LAUNCHES < 1:
+            fail(f"elle {kind} did not close on the card: {spans}")
+        res_bad, stages_bad, _ = elle_check(checker, bad)
+        counts = {k: len(v) for k, v in res_bad["anomalies"].items()}
+        print(f"elle {kind} ({planted} planted): valid?="
+              f"{res_bad['valid?']} anomalies {counts}; stages (s): "
+              f"{stage_text(stages_bad)}", flush=True)
+        if res_bad["valid?"] is not False or \
+                planted not in res_bad["anomaly-types"]:
+            fail(f"elle {kind}, {planted}: {res_bad['anomaly-types']}")
+        walls = []
+        with GpuBusy() as busy:
+            for _ in range(11):
+                walls.append(elle_check(checker, h)[1])
+        walls.sort(key=lambda st: st["wall"])
+        med = {k: statistics.median(st[k] for st in walls)
+               for k in walls[0]}
+        idle = "not measured" if busy.share is None else \
+            f"{1 - busy.share:.3f}"
+        print(f"elle {kind} timing on {card}: check wall over "
+              f"{len(walls)} runs median {walls[5]['wall']:.4f} s, p90 "
+              f"{walls[9]['wall']:.4f} s; median stages (s): "
+              f"{stage_text(med)}; device idle share {idle} (1 - mean "
+              f"nvidia-smi utilization over the runs)", flush=True)
+        # the card against the host at 500 txns, clean and corrupted
+        for corrupt in (None, planted):
+            small = gen(random.Random(ELLE_SEED), ELLE_PROCS,
+                        ELLE_PAIR_TXNS, corrupt=corrupt)
+            on_card, st_card, _ = elle_check(cls(use_tpu=True), small)
+            on_host, st_host, _ = elle_check(cls(use_tpu=False), small)
+            print(f"elle {kind} at {ELLE_PAIR_TXNS} txns, corrupt="
+                  f"{corrupt}: valid?={on_card['valid?']} "
+                  f"{on_card['anomaly-types']}; card and host dicts equal: "
+                  f"{on_card == on_host}; closure on the card "
+                  f"{st_card['closure']:.4f} s, on the host "
+                  f"{st_host['closure']:.4f} s; check {st_card['wall']:.4f}"
+                  f" / {st_host['wall']:.4f} s", flush=True)
+            if on_card != on_host or on_card["valid?"] is not (
+                    corrupt is None):
+                fail(f"elle {kind} at {ELLE_PAIR_TXNS} txns: the card and "
+                     f"the host disagree")
+    # the crossover: closure_batch on the card and, where the host
+    # serves (N <= CPU_CUTOFF), on the host; six planes at density 2/N
+    for n in ELLE_SWEEP:
+        a = np.random.RandomState(0).rand(ELLE_B, n, n) < (2.0 / n)
+        card_s = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = closure.closure_batch(a, force_device=True)
+            card_s.append(time.perf_counter() - t0)
+        host = "not measured (N > CPU_CUTOFF)"
+        if n <= closure.CPU_CUTOFF:
+            t0 = time.perf_counter()
+            want = closure.closure_batch(a, force_device=False)
+            host = f"{time.perf_counter() - t0:.4f} s"
+            if not all(np.array_equal(x, y) for x, y in zip(got, want)):
+                fail(f"closure at N={n}: card and host differ")
+        print(f"closure crossover on {card}: N={n}, {ELLE_B} planes: card "
+              f"{statistics.median(card_s):.4f} s (closure_batch, median of "
+              f"3, copies included), host {host}", flush=True)
+    return [{"name": "closure_squaring", "route": "torch.bmm",
+             "source": "jepsen_etcd_tpu_torch/ops/closure.py",
+             "replaces": "jepsen_etcd_tpu/ops/closure.py:51",
+             "launches": launches, **sq}]
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1120,6 +1415,9 @@ def main() -> None:
     # -- 7. the keyed register check ----------------------------------
     batch_entries = keyed_register_check(card)
 
+    # -- 8. Elle: the closure, list-append and rw-register ------------
+    elle_entries = elle_phase(card, torch.device("cuda", 0))
+
     print(json.dumps({"kernels": [{
         "name": "wgl_wave", "route": "cuda",
         "source": "jepsen_etcd_tpu_torch/csrc/wgl_wave.cu",
@@ -1136,7 +1434,8 @@ def main() -> None:
         "bound_ms": b2_work["bound_ms"],
         "bound_by": "bytes" if b2_work["bytes_ms"] >= b2_work["ops_ms"]
         else "operations",
-        "library_ms": None}] + batch_entries}), flush=True)
+        "library_ms": None}] + batch_entries + elle_entries}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

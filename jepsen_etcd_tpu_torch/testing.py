@@ -6,8 +6,10 @@ histories built from it (the reference's ``tests/test_batch.py``
 reference's ``_concurrent_writes_history`` (a frontier of C(n, n/2)
 states), rounds of unversioned concurrent ops (one window mask with
 several values, ``unversioned_rounds_history``), a late impossible read that makes a long history invalid near
-its end (``impossible_read_at``), and a watch-history synthesizer with
-the op shape of the reference's ``workloads/watch.py``."""
+its end (``impossible_read_at``), a watch-history synthesizer with
+the op shape of the reference's ``workloads/watch.py``, and list-append
+and rw-register txn histories with the shapes of the reference's
+``generators/elle.py`` (``gen_append_history``, ``gen_wr_history``)."""
 
 from __future__ import annotations
 
@@ -309,3 +311,264 @@ def gen_watch_history(rng: random.Random, n_writers=5, n_watchers=5,
             start, t = c, t1 + 1
     events.sort(key=lambda e: (e[0], e[1]))
     return History([op for _, _, op in events])
+
+
+class _KeyPool:
+    """Rotating active-key pool with per-key unique value counters (a
+    copy of the reference's ``generators/elle.py`` ``_KeyPool``): a key
+    retires after ``max_writes_per_key`` writes and a fresh key takes
+    its place."""
+
+    def __init__(self, key_count: int, max_writes_per_key: int):
+        self.max_writes = max_writes_per_key
+        self.active = list(range(key_count))
+        self.next_key = key_count
+        self.written: dict[int, int] = {k: 0 for k in self.active}
+
+    def read_key(self, rng) -> int:
+        return rng.choice(self.active)
+
+    def write_key(self, rng) -> tuple:
+        k = rng.choice(self.active)
+        self.written[k] += 1
+        v = self.written[k]
+        if self.written[k] >= self.max_writes:
+            self.active[self.active.index(k)] = self.next_key
+            self.written[self.next_key] = 0
+            self.next_key += 1
+        return k, v
+
+    def bump(self, k: int) -> int:
+        self.written[k] = self.written.get(k, 0) + 1
+        return self.written[k]
+
+
+def _txn_history(rng, n_procs, n_txns, make_txn, run_txn, plant, corrupt):
+    """A history of ``n_txns`` txns over ``n_procs`` processes, each
+    process running its txns back to back. Txns are made (``make_txn``)
+    in invoke order, as a generator makes them, and run (``run_txn(state,
+    txn) -> (completed mops, {key: state before the txn's first write of
+    it})``) against one serial state in the order of a point drawn
+    inside each txn's [invoke, complete] window, so a txn that completes
+    before another invokes runs first: the clean history is
+    strict-serializable. ``plant(corrupt, rng, ...)`` edits the completed
+    mops to plant one anomaly. Every txn completes ok; times are
+    nanoseconds."""
+    spans = []
+    for p in range(n_procs):
+        at = rng.random()
+        for _ in range(n_txns // n_procs + (p < n_txns % n_procs)):
+            dur = 0.1 + rng.random()
+            spans.append((at, at + dur, p))
+            at += dur + rng.random() * 0.3
+    spans.sort()
+    txns = [make_txn(rng) for _ in spans]
+    points = [rng.uniform(s, e) for s, e, _ in spans]
+    order = sorted(range(len(spans)), key=points.__getitem__)
+    state: dict = {}
+    outs, before = [None] * len(spans), [None] * len(spans)
+    for i in order:
+        outs[i], before[i] = run_txn(state, txns[i])
+    if corrupt is not None:
+        plant(corrupt, rng, spans, order, outs, before)
+    events = []
+    for (s, e, p), txn, out in zip(spans, txns, outs):
+        events.append((s, Op(type="invoke", process=p, f="txn",
+                             value=txn, time=int(s * 1e9))))
+        events.append((e, Op(type="ok", process=p, f="txn", value=out,
+                             time=int(e * 1e9))))
+    events.sort(key=lambda ev: ev[0])
+    return History([op for _, op in events])
+
+
+def _stale_read_candidates(spans, order, outs, wf: str, stale_of):
+    """(txn, writer, stale value) for each txn T that is one read of a
+    key k and each writer W of k that ran before T and completed before
+    T invoked: reading what k held before W wrote it (``stale_of(W, k)``
+    -> (usable, value)) is a stale read, a cycle of one rw edge (T -rw->
+    W) closed by realtime edges."""
+    pos = {i: n for n, i in enumerate(order)}
+    key_writers: dict = {}
+    for i, mops in enumerate(outs):
+        for k in dict.fromkeys(k for f, k, _ in mops if f == wf):
+            key_writers.setdefault(k, []).append(i)
+    out = []
+    for i, mops in enumerate(outs):
+        if len(mops) != 1 or mops[0][0] != "r":
+            continue
+        k = mops[0][1]
+        for w in key_writers.get(k, ()):
+            if pos[w] < pos[i] and spans[w][1] < spans[i][0]:
+                usable, stale = stale_of(w, k)
+                if usable:
+                    out.append((i, w, stale))
+    return out
+
+
+def _plant_g1c(rng, order, outs, wf, reads_of, after_of):
+    """Circular information flow: txns A before B (serially), B reads
+    A's write of k, A reads a key j it never writes and B writes; A's
+    reads of j are changed to what j held after B (``after_of(B, j)``),
+    so B -wr-> A and A -wr-> B."""
+    pos = {i: n for n, i in enumerate(order)}
+    writers = {(k, v): i for i, out in enumerate(outs)
+               for f, k, v in out if f == wf}
+    cands = []
+    for b, mops in enumerate(outs):
+        b_writes = {k for f, k, _ in mops if f == wf}
+        for k, seen in reads_of(mops):
+            if k in b_writes:
+                continue
+            for a in {writers.get((k, x)) for x in seen}:
+                if a is None or pos[a] >= pos[b]:
+                    continue
+                a_writes = {k2 for f, k2, _ in outs[a] if f == wf}
+                for j in sorted({m[1] for m in outs[a] if m[0] == "r"}
+                                - a_writes):
+                    if j in b_writes:
+                        cands.append((a, b, j))
+    if not cands:
+        raise ValueError("no txn pair to plant G1c on")
+    a, b, j = rng.choice(sorted(cands))
+    new = after_of(b, j)
+    outs[a] = [[f, k, new] if f == "r" and k == j else [f, k, v]
+               for f, k, v in outs[a]]
+
+
+def gen_append_history(rng: random.Random, n_procs: int, n_txns: int,
+                       key_count: int = 3, max_txn_length: int = 4,
+                       max_writes_per_key: int = 32,
+                       corrupt=None) -> History:
+    """A list-append history (``["r", k, list]`` / ``["append", k, v]``
+    micro-ops, a read of a key never appended returning None) of
+    ``n_txns`` committed txns, with the reference generator's shape
+    (``generators/elle.py`` ``list_append_gen``: a rotating pool of
+    ``key_count`` keys, 1 .. max_txn_length micro-ops, half of them
+    reads, values unique and increasing per key).
+
+    ``corrupt`` plants one anomaly: ``"G-single-realtime"`` makes a
+    one-read txn miss the append of a txn that completed before it
+    invoked (a stale prefix); ``"G1c"`` makes two txns each read the
+    other's append."""
+    pool = _KeyPool(key_count, max_writes_per_key)
+
+    def make(rng):
+        txn = []
+        for _ in range(rng.randint(1, max_txn_length)):
+            if rng.random() < 0.5:
+                txn.append(["r", pool.read_key(rng), None])
+            else:
+                k, v = pool.write_key(rng)
+                txn.append(["append", k, v])
+        return txn
+
+    def run(state, txn):
+        out, before = [], {}
+        for f, k, v in txn:
+            if f == "append":
+                before.setdefault(k, list(state.get(k, [])))
+                state.setdefault(k, []).append(v)
+                out.append([f, k, v])
+            else:
+                out.append([f, k, list(state[k]) if k in state else None])
+        return out, before
+
+    def plant(corrupt, rng, spans, order, outs, before):
+        if corrupt == "G-single-realtime":
+            cands = _stale_read_candidates(
+                spans, order, outs, "append",
+                lambda w, k: (True, before[w][k]))
+            if not cands:
+                raise ValueError("no read to make stale")
+            i, _, stale = rng.choice(cands)
+            outs[i] = [["r", outs[i][0][1], stale or None]]
+        elif corrupt == "G1c":
+            def after_of(b, j):
+                return before[b][j] + [v for f, k, v in outs[b]
+                                       if f == "append" and k == j]
+            _plant_g1c(rng, order, outs, "append",
+                       lambda mops: [(k, v) for f, k, v in mops
+                                     if f == "r" and v],
+                       after_of)
+        else:
+            raise ValueError(f"unknown corruption {corrupt!r}")
+
+    return _txn_history(rng, n_procs, n_txns, make, run, plant, corrupt)
+
+
+def gen_wr_history(rng: random.Random, n_procs: int, n_txns: int,
+                   key_count: int = 3, max_txn_length: int = 4,
+                   max_writes_per_key: int = 32,
+                   corrupt=None) -> History:
+    """An rw-register history (``["r", k, v]`` / ``["w", k, v]``
+    micro-ops, an unwritten key reading None) of ``n_txns`` committed
+    txns, with the reference generator's shape (``generators/elle.py``
+    ``rw_register_gen``: the rotating key pool, 1 .. max_txn_length
+    micro-ops, a write after a read reusing a read key with probability
+    1/2, values unique per key).
+
+    ``corrupt`` plants one anomaly: ``"G-single-realtime"`` makes a
+    one-read txn read the value a key held before the write of a txn
+    that completed before it invoked (None, or a value that writer read
+    before overwriting it, so the version order shows the read stale);
+    ``"G1c"`` makes two txns each read the other's write."""
+    pool = _KeyPool(key_count, max_writes_per_key)
+
+    def make(rng):
+        txn, read_keys = [], []
+        for _ in range(rng.randint(1, max_txn_length)):
+            if rng.random() < 0.5:
+                k = pool.read_key(rng)
+                txn.append(["r", k, None])
+                read_keys.append(k)
+            elif read_keys and rng.random() < 0.5:   # writes follow reads
+                k = rng.choice(read_keys)
+                txn.append(["w", k, pool.bump(k)])
+            else:
+                k, v = pool.write_key(rng)
+                txn.append(["w", k, v])
+        return txn
+
+    def run(state, txn):
+        out, before = [], {}
+        for f, k, v in txn:
+            if f == "w":
+                before.setdefault(k, state.get(k))
+                state[k] = v
+                out.append([f, k, v])
+            else:
+                out.append([f, k, state.get(k)])
+        return out, before
+
+    def plant(corrupt, rng, spans, order, outs, before):
+        if corrupt == "G-single-realtime":
+            def stale_of(w, k):
+                # None, or the value W read before its first write of k
+                # (so the version order puts it before W's write)
+                stale = before[w][k]
+                first = next(m for m in outs[w] if m[1] == k)
+                return (stale is None or first == ["r", k, stale]), stale
+            cands = _stale_read_candidates(spans, order, outs, "w",
+                                           stale_of)
+            if not cands:
+                raise ValueError("no read to make stale")
+            i, _, stale = rng.choice(cands)
+            outs[i] = [["r", outs[i][0][1], stale]]
+        elif corrupt == "G1c":
+            def after_of(b, j):
+                return [v for f, k, v in outs[b] if f == "w" and k == j][-1]
+
+            def ext_reads(mops):
+                # reads of a key before the txn's own writes of it
+                out, written = [], set()
+                for f, k, v in mops:
+                    if f == "w":
+                        written.add(k)
+                    elif k not in written and v is not None:
+                        out.append((k, [v]))
+                return out
+            _plant_g1c(rng, order, outs, "w", ext_reads, after_of)
+        else:
+            raise ValueError(f"unknown corruption {corrupt!r}")
+
+    return _txn_history(rng, n_procs, n_txns, make, run, plant, corrupt)

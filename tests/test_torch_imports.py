@@ -2,6 +2,7 @@
 package, and its entry points run on CUDA unless told otherwise."""
 
 import os
+import random
 import subprocess
 import sys
 
@@ -26,10 +27,17 @@ PORT_MODULES = [
     "jepsen_etcd_tpu_torch.checkers.session",
     "jepsen_etcd_tpu_torch.checkers.tpu_linearizable",
     "jepsen_etcd_tpu_torch.checkers.watch",
+    "jepsen_etcd_tpu_torch.checkers.elle",
+    "jepsen_etcd_tpu_torch.checkers.elle.graph",
+    "jepsen_etcd_tpu_torch.checkers.elle.append",
+    "jepsen_etcd_tpu_torch.checkers.elle.wr",
+    "jepsen_etcd_tpu_torch.runner",
+    "jepsen_etcd_tpu_torch.runner.telemetry",
     "jepsen_etcd_tpu_torch.generators",
     "jepsen_etcd_tpu_torch.generators.independent",
     "jepsen_etcd_tpu_torch.ops",
     "jepsen_etcd_tpu_torch.ops.common",
+    "jepsen_etcd_tpu_torch.ops.closure",
     "jepsen_etcd_tpu_torch.ops.edit_distance",
     "jepsen_etcd_tpu_torch.ops.wgl",
     "jepsen_etcd_tpu_torch.ops.wgl_mxu",
@@ -126,7 +134,9 @@ def _launch(p, dev):
                                    "launch_packed_batch_mxu",
                                    "check_packed_batch", "check_batch",
                                    "independent_check",
-                                   "watch_checker", "edit_distance_batch"])
+                                   "watch_checker", "edit_distance_batch",
+                                   "closure_batch", "list_append_checker",
+                                   "rw_register_checker"])
 def test_entry_points_raise_without_cuda_unless_cpu(no_cuda, entry):
     from jepsen_etcd_tpu_torch.checkers.independent import Independent
     from jepsen_etcd_tpu_torch.checkers.tpu_linearizable import \
@@ -134,8 +144,12 @@ def test_entry_points_raise_without_cuda_unless_cpu(no_cuda, entry):
     from jepsen_etcd_tpu_torch.checkers.watch import WatchChecker
     from jepsen_etcd_tpu_torch.core.history import History
     from jepsen_etcd_tpu_torch.device import resolve_device
-    from jepsen_etcd_tpu_torch.ops import edit_distance, wgl, wgl_mxu
-    from jepsen_etcd_tpu_torch.testing import keyed
+    from jepsen_etcd_tpu_torch.checkers.elle import (ListAppendChecker,
+                                                     RWRegisterChecker)
+    from jepsen_etcd_tpu_torch.ops import closure, edit_distance, wgl, \
+        wgl_mxu
+    from jepsen_etcd_tpu_torch.testing import (gen_append_history,
+                                               gen_wr_history, keyed)
     h, p = _tiny_pack()
     call = {
         "resolve_device": lambda dev: resolve_device(dev),
@@ -165,6 +179,16 @@ def test_entry_points_raise_without_cuda_unless_cpu(no_cuda, entry):
             "valid?": edit_distance.edit_distance_batch(
                 [1, 2, 3], [[1, 3]], force_device=True,
                 device=dev) == [1]},
+        "closure_batch": lambda dev: {
+            "valid?": not closure.closure_batch(
+                np.zeros((1, 3, 3), bool), force_device=True,
+                device=dev)[1].any()},
+        "list_append_checker": lambda dev: ListAppendChecker(
+            use_tpu=True, device=dev).check(
+                {}, gen_append_history(random.Random(1), 3, 20)),
+        "rw_register_checker": lambda dev: RWRegisterChecker(
+            use_tpu=True, device=dev).check(
+                {}, gen_wr_history(random.Random(1), 3, 20)),
     }[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call(None)
