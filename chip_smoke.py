@@ -24,9 +24,17 @@ bf16 ``torch.bmm`` squarings) at six 2,048-node planes, held against
 strongly connected components and BFS rows and split over two lanes of
 the card, then ``ListAppendChecker`` and ``RWRegisterChecker`` on 3,731
 committed txns (clean and with an anomaly planted), the card against
-the host, and the closure's crossover. Prints the card's name and
-power limit, a ``{"kernels": [...]}`` line, and last ``{"ok": true,
-"device": ...}``.
+the host, and the closure's crossover. Last the simulator
+(``simbatch/``): the register drain kernel drain_register held against
+its plain version at the reference bench's generation shape (16 seeds x
+7,520 completions), at 256 seeds and on a fuzz, both timed; the
+epoch-v2 and epoch-v3 golden pins reproduced with generation on the
+card; epoch-v3 timed with its stages; the threefry draws held against
+the CPU's; simulated histories checked (a single key through
+wgl_wave, four keys through its batched launch, stale reads caught);
+and the fused gen->check pipeline against its sequential twin. Prints
+the card's name and power limit, a ``{"kernels": [...]}`` line, and
+last ``{"ok": true, "device": ...}``.
 Exits non-zero, with no result line, when CUDA is unavailable or any
 phase fails. Imports nothing of JAX or of the JAX package.
 """
@@ -106,6 +114,51 @@ ELLE_PLANTED = {"list-append": "G-single-realtime", "rw-register": "G1c"}
 ELLE_SWEEP = (256, 512, 768, 1024, 2048)
 #: dense bf16 tensor-core peak of the H100 SXM (NVIDIA data sheet)
 BF16_FLOPS_PER_S = 989e12
+#: the simulator cells. The reference bench's generation shape
+#: (bench.py:763-787): 16 lanes x 470 ops, N = 7,520 completions over 4
+#: keys, 16 seeds; its seed-axis scaling at time_limit 1.0 (16 seeds
+#: against 256, bench.py:789-802); the single-key check on a simulated
+#: history of the register cell's size, 13,500 ops (6 lanes -> 1 key);
+#: the fused pipeline at the generation shape over 4 seeds in
+#: sub-batches of 2 (bench.py:885-930 runs 16: its check is ~30,000
+#: ladder waves at 4 seeds). The drain's fuzz: 24 lanes over 12 keys,
+#: partition and kill with a flat 0.3 timeout rate in open windows and
+#: stale reads injected, and random planes over 64 keys (the machine
+#: past shared memory)
+GEN_OPTS = {"workload": "register", "nodes": ["n1", "n2", "n3"],
+            "concurrency": 16, "rate": 1000.0, "time_limit": 7.52}
+GEN_SEEDS, GEN_SCALE_SEEDS, GEN_SCALE_LIMIT, GEN_REPS = 16, 256, 1.0, 5
+SIM_SINGLE_OPTS = dict(GEN_OPTS, concurrency=6, time_limit=13.5)
+FUSED_SEEDS, FUSED_SUB_BATCH = 4, 2
+DRAIN_FUZZ = {"workload": "register", "lanes": 24, "keys": 12,
+              "ops_per_lane": 150, "rate": 1000.0,
+              "nemeses": ("partition", "kill"), "drop_prob": 0.3,
+              "inject_stale_reads": True}
+DRAIN_FUZZ_SEEDS, DRAIN_WIDE_KEYS = 64, 64
+#: the committed pins (tests/test_simbatch.py:177-198 and
+#: tests/test_simbatch_jax.py:30-37): seed 0's sha and the sha of the 16
+#: seeds' shas joined, at the bench's dry shape
+PIN_OPTS = {"workload": "register", "nodes": ["n1", "n2", "n3"],
+            "concurrency": 8, "rate": 200.0, "time_limit": 2.0}
+PINS = {"epoch-v2": (
+    "f994af9bf3d2cb2728c4993bd44a13db92cbc70bc8f42f46bb33291d5e88da69",
+    "89d9966eabeb0b1fa01943ac93921db260b503c3ec48e56ec830891674f21d69"),
+    "epoch-v3": (
+    "c82fabd17a19636bd2aa710d219ff7da169d8919b4528566d55fd41e63853fb8",
+    "d93dbf74fe3c0a4180282278c2c223293b7779e33edbdd4bb5a2798c43f9693c")}
+#: drain_register.cu's body a (step, seed), counted from its code: seven
+#: plane loads, two state loads, the compares and selects of the five
+#: outputs, four state stores when it writes, five output stores
+DRAIN_OPS_PER_STEP = 30
+#: the chain a step adds: the next step's state load waits for this
+#: one's store to the same word (a shared-memory store and load, ~30 SM
+#: cycles on Hopper)
+DRAIN_CHAIN_CYCLES = 30
+#: threefry-2x32 a pair of words, counted from threefry.py's _hash: 20
+#: rounds of an add and its mask, a rotate (two shifts, a mask, an or)
+#: and a xor; 5 key injections of three adds and two masks; the initial
+#: two adds and masks; the counter's split and concatenation
+THREEFRY_OPS_PER_PAIR = 20 * 7 + 5 * 5 + 4 + 4
 
 
 def fail(msg: str) -> None:
@@ -1035,6 +1088,429 @@ def elle_phase(card: str, dev) -> list:
              "launches": launches, **sq}]
 
 
+def sm_clock_mhz() -> float:
+    """The card's top SM clock (nvidia-smi ``clocks.max.sm``, MHz)."""
+    return float(subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0])
+
+
+@contextlib.contextmanager
+def captured_drains():
+    """Record the arguments of every ``_drain_register`` call that
+    ``generate_jax`` makes inside the block (the drain's inputs exactly
+    as the main path builds them)."""
+    from jepsen_etcd_tpu_torch.simbatch import engine_v3
+    calls = []
+    real = engine_v3._drain_register
+
+    def capture(*args):
+        calls.append(args)
+        return real(*args)
+    engine_v3._drain_register = capture
+    try:
+        yield calls
+    finally:
+        engine_v3._drain_register = real
+
+
+@contextlib.contextmanager
+def gen_stage_timers(stages: dict):
+    """Add, into ``stages``, the host-clock seconds (each ending in a
+    device sync) that ``generate_jax`` spends in its draws (threefry on
+    the card and the one copy back), its drain (the kernel) and
+    ``_finish`` (the per-seed OpColumns)."""
+    import torch
+    from jepsen_etcd_tpu_torch.simbatch import engine_v3
+    names = {"draw": "_draws_jax", "drain": "_drain_register",
+             "finish": "_finish"}
+    real = {k: getattr(engine_v3, v) for k, v in names.items()}
+
+    def timed(key, fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            stages[key] = stages.get(key, 0.0) + time.perf_counter() - t0
+            return out
+        return run
+    for k, v in names.items():
+        setattr(engine_v3, v, timed(k, real[k]))
+    try:
+        yield stages
+    finally:
+        for k, v in names.items():
+            setattr(engine_v3, v, real[k])
+
+
+def drain_bound(N: int, S: int, K: int, mhz: float) -> dict:
+    """The drain's least time on the card, counted from its inputs: the
+    bytes of the planes read once (five int32 and two bool a step and
+    seed) and the outputs written once (five int32), the state read
+    once, against HBM; the body's operations against the 32-bit rate;
+    and, beside them, the chain of N dependent steps at
+    DRAIN_CHAIN_CYCLES each."""
+    nbytes = N * S * (5 * 4 + 2) + N * S * 5 * 4 + 4 * S * K * 4
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = N * S * DRAIN_OPS_PER_STEP / ALU32_OPS_PER_S * 1e3
+    return {"bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "chain_ms": N * DRAIN_CHAIN_CYCLES / (mhz * 1e6) * 1e3}
+
+
+def hold_drain(args, what: str) -> int:
+    """drain_register.cu against drain_register_reference on the same
+    planes, all five outputs, the machine in shared memory (where it
+    fits) and in the global scratch; returns the largest difference."""
+    import torch
+    from jepsen_etcd_tpu_torch.ops import _cuda
+    from jepsen_etcd_tpu_torch.simbatch import engine_v3
+    want = engine_v3.drain_register_reference(*args)
+    N, S = args[4].shape
+    K = args[0].shape[1]
+    smem = _cuda.drain_smem_max
+    errs = {}
+    for regime in ("shared", "global"):
+        if regime == "global":
+            _cuda.drain_smem_max = lambda: 0
+        elif 16 * K * engine_v3.DRAIN_THREADS > smem():
+            continue
+        try:
+            got = engine_v3._drain_register(*args)
+            torch.cuda.synchronize()
+        finally:
+            _cuda.drain_smem_max = smem
+        errs[regime] = int((got.long() - want.long()).abs().max()) \
+            if got.numel() else 0
+    to = args[9]
+    print(f"  drain_register {what}: N {N}, S {S}, K {K}, "
+          f"{int(to.sum())} timed-out rows, {int(args[10].sum())} stale "
+          f"gates; max_abs_err against the plain version on all five "
+          f"planes: {errs}", flush=True)
+    if any(errs.values()):
+        fail(f"drain_register disagrees with its plain version ({what})")
+    return max(errs.values())
+
+
+def random_drain_inputs(seed: int, N: int, S: int, K: int, dev):
+    """Random drain planes (keys in [0, K), f in {read, write, cas},
+    values in [0, 5), a third of the rows timed out, half stale-gated)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    state = [np.zeros((S, K)), np.full((S, K), -1), np.zeros((S, K)),
+             np.full((S, K), -1)]
+    planes = [rng.integers(0, K, (N, S)), rng.integers(0, 3, (N, S)),
+              rng.integers(0, 5, (N, S)), rng.integers(-1, 5, (N, S)),
+              rng.integers(0, 5, (N, S))]
+    flags = [rng.random((N, S)) < 0.3, rng.random((N, S)) < 0.5]
+    return tuple([torch.from_numpy(a.astype(np.int32)).to(dev)
+                  for a in state + planes]
+                 + [torch.from_numpy(a).to(dev) for a in flags])
+
+
+def threefry_work(config, S: int) -> dict:
+    """What ``_draw_device`` computes for S seeds: words hashed (each
+    uniform block its size, each randint block a split of 4 words and
+    twice its size, the 12-way split 24 words) and bytes written (the
+    blocks, 4 bytes a value; the input is S seeds); its bound."""
+    from jepsen_etcd_tpu_torch.simbatch import engine_v3
+    L, O, ncy, _ = engine_v3._draws_shape_params(config)[:4]
+    uniform = L + 3 * L * O + 2 * ncy
+    randint = 5 * L * O + ncy
+    words = S * (24 + uniform + randint * 2 + 6 * 4)
+    nbytes = S * 4 * (uniform + randint) + S * 8
+    ops_ms = words / 2 * THREEFRY_OPS_PER_PAIR / ALU32_OPS_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"words": words, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms)}
+
+
+def pin_shas(out) -> tuple:
+    import hashlib
+    from jepsen_etcd_tpu_torch.simbatch import history_sha
+    shas = [history_sha(h) for h in out["histories"]]
+    return shas[0], hashlib.sha256("".join(shas).encode()).hexdigest()
+
+
+def simulator_phase(card: str, dev) -> list:
+    """The port's simulator on the card: (a) drain_register.cu held
+    exactly against its plain version at the generation shape, at 256
+    seeds and on the fuzz, both timed; (b) both committed pins, the
+    generator timed at the generation shape (stages, events/s, the
+    device's busy share) and per seed at 16 and 256 seeds, the threefry
+    draws held against the CPU's and timed; (c) simulated histories
+    checked: a single key through B1, the generation shape's 4 keys
+    through ``Independent(Compose({linear, session}))``, every verdict
+    against the native DFS, and an injected stale read caught; (d) the
+    fused gen->check pipeline against its sequential twin. Returns the
+    kernels line's entries for the drain and the draws."""
+    import numpy as np
+    import torch
+    from jepsen_etcd_tpu_torch.checkers import (
+        SessionGuarantees, TPULinearizableChecker, compose,
+        independent_checker)
+    from jepsen_etcd_tpu_torch.checkers.linearizable import check_history
+    from jepsen_etcd_tpu_torch.models import VersionedRegister
+    from jepsen_etcd_tpu_torch.ops import wgl_mxu
+    from jepsen_etcd_tpu_torch.runner.stream import FusedPipeline
+    from jepsen_etcd_tpu_torch.simbatch import (BatchConfig, engine_v3,
+                                                generate, generate_for_opts,
+                                                generate_jax)
+    mhz = sm_clock_mhz()
+    v3 = dict(GEN_OPTS, gen_epoch="epoch-v3")
+    cfg = BatchConfig.from_opts(v3)
+    seeds = list(range(GEN_SEEDS))
+
+    # -- (a) the drain against its plain version ----------------------
+    print("drain_register vs plain (exact, tolerance 0):", flush=True)
+    with captured_drains() as calls:
+        generate_jax(cfg, seeds, device=dev)
+        generate_jax(BatchConfig.from_opts(
+            dict(v3, time_limit=GEN_SCALE_LIMIT)),
+            list(range(GEN_SCALE_SEEDS)), device=dev)
+        generate_jax(BatchConfig(**DRAIN_FUZZ),
+                     list(range(DRAIN_FUZZ_SEEDS)), device=dev)
+    gen_args, scale_args, fuzz_args = calls
+    wide_args = random_drain_inputs(1, 500, 100, DRAIN_WIDE_KEYS, dev)
+    drain_err = 0
+    for what, args in (("generation shape", gen_args),
+                       (f"{GEN_SCALE_SEEDS} seeds", scale_args),
+                       ("fuzz: 12 keys, partition and kill", fuzz_args),
+                       (f"random planes, {DRAIN_WIDE_KEYS} keys",
+                        wide_args)):
+        drain_err = max(drain_err, hold_drain(args, what))
+    drain_t = {}
+    for what, args in (("generation shape", gen_args),
+                       (f"{GEN_SCALE_SEEDS} seeds", scale_args)):
+        N, S = args[4].shape
+        b = drain_bound(N, S, args[0].shape[1], mhz)
+        k_ms = cuda_ms(lambda: engine_v3._drain_register(*args), 11)
+        p_ms = cuda_ms(lambda: engine_v3.drain_register_reference(*args),
+                       11)
+        drain_t[what] = (k_ms, p_ms, b)
+        print(f"drain_register at the {what} on {card}: kernel "
+              f"{k_ms:.4f} ms, plain torch loop {p_ms:.1f} ms (medians of "
+              f"11, CUDA events); N {N} steps x S {S} seeds, "
+              f"{k_ms * 1e6 / N:.1f} ns a step; bound {b['bound_ms']:.5f} "
+              f"ms (bytes {b['bytes_ms']:.5f} ms, operations "
+              f"{b['ops_ms']:.5f} ms); the chain of {N} dependent steps "
+              f"at {DRAIN_CHAIN_CYCLES} cycles and {mhz:.0f} MHz: "
+              f"{b['chain_ms']:.4f} ms", flush=True)
+
+    # -- (b) generation on the card ------------------------------------
+    got = {"epoch-v2": pin_shas(generate_for_opts(dict(PIN_OPTS),
+                                                  seeds)),
+           "epoch-v3": pin_shas(generate_for_opts(
+               dict(PIN_OPTS, gen_epoch="epoch-v3"), seeds, device=dev))}
+    print(f"pins (16 seeds, seed 0's sha and the joined sha): {got}; "
+          f"committed: {got == PINS}", flush=True)
+    if got != PINS:
+        fail(f"a generator pin differs: {got} != {PINS}")
+    # the main path of this phase: epoch-v3 at the generation shape
+    # (warmed at that shape by the capture above), counted
+    torch.cuda.synchronize()
+    engine_v3.LAUNCHES = engine_v3.DRAW_LAUNCHES = 0
+    t0 = time.perf_counter()
+    out = generate_jax(cfg, seeds, device=dev)
+    torch.cuda.synchronize()
+    drive_s = time.perf_counter() - t0
+    drain_launches = engine_v3.LAUNCHES
+    draw_launches = engine_v3.DRAW_LAUNCHES
+    if drain_launches < 1 or draw_launches < 1:
+        fail("the generator did not launch drain_register or draw")
+    walls, stage_runs = [], []
+    with GpuBusy() as busy:
+        for _ in range(GEN_REPS):
+            stages = {}
+            with gen_stage_timers(stages):
+                t0 = time.perf_counter()
+                generate_jax(cfg, seeds, device=dev)
+                walls.append(time.perf_counter() - t0)
+            stages["host timeline"] = walls[-1] - sum(stages.values())
+            stage_runs.append(stages)
+    wall = statistics.median(walls)
+    split = {k: statistics.median(r[k] for r in stage_runs)
+             for k in stage_runs[0]}
+    t0 = time.perf_counter()
+    v2 = generate(cfg, seeds)
+    v2_s = time.perf_counter() - t0
+    print(f"generation at the bench shape on {card}: {out['events']} "
+          f"events over {GEN_SEEDS} seeds ({cfg.lanes} lanes x "
+          f"{cfg.ops_per_lane} ops, {cfg.keys} keys); epoch-v3 median of "
+          f"{GEN_REPS} {wall:.4f} s [{min(walls):.4f}-{max(walls):.4f}], "
+          f"{out['events'] / wall:,.0f} aggregate events/s (first run "
+          f"{drive_s:.4f} s); stages (s, medians): " + ", ".join(
+              f"{k} {v:.4f}" for k, v in split.items())
+          + f"; card busy share {busy.share} (nvidia-smi); epoch-v2 on "
+          f"the host {v2_s:.4f} s ({v2['events'] / v2_s:,.0f} events/s); "
+          f"drain launches {drain_launches}, draws {draw_launches}",
+          flush=True)
+    scaling = {}
+    for n in (GEN_SEEDS, GEN_SCALE_SEEDS):
+        scfg = BatchConfig.from_opts(dict(v3, time_limit=GEN_SCALE_LIMIT))
+        ss = list(range(n))
+        generate_jax(scfg, ss, device=dev)
+        runs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            sgen = generate_jax(scfg, ss, device=dev)
+            runs.append(time.perf_counter() - t0)
+        scaling[n] = (statistics.median(runs), sgen["events"])
+    print(f"generation per seed at time_limit {GEN_SCALE_LIMIT} on {card} "
+          f"(medians of 3): " + "; ".join(
+              f"S={n}: {s:.4f} s, {s / n * 1e3:.3f} ms a seed, {e} events"
+              for n, (s, e) in scaling.items()), flush=True)
+    # the draws: the card's blocks against the CPU's, bit for bit
+    L, O, ncy, nnem = engine_v3._draws_shape_params(cfg)[:4]
+    sd = torch.tensor(seeds, device=dev)
+    on_card = engine_v3._draw_device(sd, L, O, ncy, nnem)
+    on_cpu = engine_v3._draw_device(sd.cpu(), L, O, ncy, nnem)
+    draw_err = max(int((a.cpu().view(torch.int32).long()
+                        - b.view(torch.int32).long()).abs().max())
+                   for a, b in zip(on_card, on_cpu))
+    draw_ms = cuda_ms(lambda: engine_v3._draw_device(sd, L, O, ncy, nnem),
+                      11)
+    cpu_runs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        engine_v3._draw_device(sd.cpu(), L, O, ncy, nnem)
+        cpu_runs.append((time.perf_counter() - t0) * 1e3)
+    draw_cpu_ms = statistics.median(cpu_runs)
+    tw = threefry_work(cfg, GEN_SEEDS)
+    print(f"threefry draws at the bench shape on {card}: "
+          f"{draw_ms:.4f} ms (median of 11, CUDA events), the same torch "
+          f"ops on the host's CPU {draw_cpu_ms:.1f} ms (median of 3); "
+          f"{tw['words']} words hashed; bound {tw['bound_ms']:.5f} ms "
+          f"(operations {tw['ops_ms']:.5f} ms, bytes {tw['bytes_ms']:.5f} "
+          f"ms); card against CPU max_abs_err {draw_err}", flush=True)
+    if draw_err:
+        fail("the card's threefry draws differ from the CPU's")
+
+    # -- (c) checks on simulated histories -----------------------------
+    single = generate_for_opts(dict(SIM_SINGLE_OPTS, gen_epoch="epoch-v3"),
+                               [0], device=dev)["histories"][0]
+    (key, sub), = single.split_by_key().items()
+    torch.cuda.synchronize()
+    wgl_mxu.LAUNCHES = 0
+    t0 = time.perf_counter()
+    res = TPULinearizableChecker().check({}, sub)
+    single_s = time.perf_counter() - t0
+    single_launches = wgl_mxu.LAUNCHES
+    dfs = check_history(VersionedRegister(0, None), sub)
+    print(f"simulated single-key history: {len(single)} entries, key "
+          f"{key}: valid?={res['valid?']} engine={res.get('engine')} "
+          f"waves={res.get('waves')} wgl_wave launches {single_launches} "
+          f"check wall {single_s:.3f} s; native DFS valid?="
+          f"{dfs['valid?']}", flush=True)
+    if res.get("engine") != "mxu-wave" or single_launches < 1 or \
+            res["valid?"] is not dfs["valid?"] or res["valid?"] is not True:
+        fail(f"simulated single-key check {res}, DFS {dfs}")
+    # the register workload's checker with --force-kernel (cpu_cutoff
+    # None): 4 keys of 3,760 entries each sit inside the native DFS's
+    # first-shot band, and this cell is B1's batched launch
+    checker = independent_checker(compose({
+        "linear": TPULinearizableChecker(cpu_cutoff=None),
+        "session": SessionGuarantees()}))
+    for stale in (False, True):
+        h = generate_for_opts(dict(v3, inject_stale_reads=stale), [0],
+                              device=dev)["histories"][0]
+        subs = h.split_by_key()
+        torch.cuda.synchronize()
+        wgl_mxu.LAUNCHES = 0
+        t0 = time.perf_counter()
+        res = checker.check({}, h)
+        keyed_s = time.perf_counter() - t0
+        launches = wgl_mxu.LAUNCHES
+        lin = {k: r["linear"] for k, r in res["results"].items()}
+        ses = {k: r["session"]["valid?"] for k, r in res["results"].items()}
+        for k, s in subs.items():
+            dfs = check_history(VersionedRegister(0, None), s)
+            if lin[k]["valid?"] is not dfs["valid?"]:
+                fail(f"simulated keyed history, key {k}: {lin[k]} but "
+                     f"native DFS {dfs}")
+        print(f"simulated keyed history{' (stale reads injected)' if stale else ''}: "
+              f"{len(h)} entries, {len(subs)} keys x "
+              f"{[len(s) for s in subs.values()]} entries: valid?="
+              f"{res['valid?']}, linear {[lin[k]['valid?'] for k in subs]} "
+              f"engines {[lin[k].get('engine') for k in subs]} (= native "
+              f"DFS), session {[ses[k] for k in subs]}; wgl_wave launches "
+              f"{launches}; check wall {keyed_s:.3f} s", flush=True)
+        if stale:
+            if res["valid?"] is not False or all(ses.values()):
+                fail("the injected stale reads were not caught")
+        elif res["valid?"] is not True or launches < 1:
+            fail(f"simulated keyed history: {res['valid?']}, launches "
+                 f"{launches}")
+
+    # -- (d) the fused pipeline against its sequential twin ------------
+    fseeds = list(range(FUSED_SEEDS))
+    fused = FusedPipeline(GEN_OPTS, sub_batch=FUSED_SUB_BATCH,
+                          device=dev).run(fseeds)
+    t0 = time.perf_counter()
+    gen = generate_for_opts(v3, fseeds, device=dev)
+    seq_gen_s = time.perf_counter() - t0
+    twin = FusedPipeline(GEN_OPTS, device=dev)
+    t0 = time.perf_counter()
+    seq = {s: twin._check_history(s, h)[0]
+           for s, h in zip(fseeds, gen["histories"])}
+    seq_check_s = time.perf_counter() - t0
+    print(f"fused pipeline on {card}: {FUSED_SEEDS} seeds in sub-batches "
+          f"of {FUSED_SUB_BATCH}: gen_s {fused['gen_s']:.3f}, check_s "
+          f"{fused['check_s']:.3f}, e2e_s {fused['e2e_s']:.3f}, ratio "
+          f"{fused['ratio']:.3f} (e2e / max leg), packs {fused['packs']}, "
+          f"waves {fused['waves']}; sequential twin: gen "
+          f"{seq_gen_s:.3f} s + check {seq_check_s:.3f} s = "
+          f"{seq_gen_s + seq_check_s:.3f} s; verdicts {fused['verdicts']}, "
+          f"equal: {seq == fused['verdicts']}", flush=True)
+    if seq != fused["verdicts"]:
+        fail(f"fused verdicts {fused['verdicts']} != sequential {seq}")
+    # where the check leg's time goes: seed 0's packs through check_prefix
+    # (paused every max_waves) against the one-shot ladder from the same
+    # rung (f_max: no wave kernel); same dicts
+    from jepsen_etcd_tpu_torch.ops import wgl
+    ps = wgl.PackStream()
+    ps.feed(gen["histories"][0].columns)
+    walls = {"check_prefix": 0.0, "one-shot ladder": 0.0}
+    lwaves = 0
+    packs = ps.finish()
+    for p in packs.values():
+        t0 = time.perf_counter()
+        state = None
+        while state is None or not state.done:
+            state = wgl.check_prefix(p, state, max_waves=twin.max_waves,
+                                     device=dev)
+        walls["check_prefix"] += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        one = wgl.check_packed(p, f_max=wgl.LADDER[0], device=dev)
+        walls["one-shot ladder"] += time.perf_counter() - t0
+        lwaves += state.waves_run
+        if one != state.result:
+            fail(f"check_prefix {state.result} != one-shot ladder {one}")
+    print(f"fused check leg, seed 0's {len(packs)} packs, {lwaves} "
+          f"waves: " + ", ".join(f"{k} {v:.3f} s ({v / lwaves * 1e3:.3f} "
+                                 f"ms a wave)" for k, v in walls.items())
+          + "; same dicts", flush=True)
+
+    k_ms, p_ms, b = drain_t["generation shape"]
+    return [{"name": "drain_register", "route": "cuda",
+             "source": "jepsen_etcd_tpu_torch/csrc/drain_register.cu",
+             "replaces": "jepsen_etcd_tpu/simbatch/engine_jax.py:159",
+             "launches": drain_launches, "max_abs_err": drain_err,
+             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b["bound_ms"],
+             "bound_by": "bytes" if b["bytes_ms"] >= b["ops_ms"]
+             else "operations", "library_ms": None},
+            {"name": "threefry_draws", "route": "torch",
+             "source": "jepsen_etcd_tpu_torch/simbatch/threefry.py",
+             "replaces": "jepsen_etcd_tpu/simbatch/engine_jax.py:81",
+             "launches": draw_launches, "max_abs_err": draw_err,
+             "ms": draw_ms, "plain_ms": draw_cpu_ms,
+             "bound_ms": tw["bound_ms"],
+             "bound_by": "bytes" if tw["bytes_ms"] >= tw["ops_ms"]
+             else "operations", "library_ms": None}]
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1058,7 +1534,7 @@ def main() -> None:
     # -- 1. build -----------------------------------------------------
     from concurrent.futures import ThreadPoolExecutor
     t0 = time.perf_counter()
-    sources = ["wgl_wave", "indel_bits"]
+    sources = ["wgl_wave", "indel_bits", "drain_register"]
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(_cuda.build, sources))
     print(f"build: {', '.join(s + '.cu' for s in sources)} (in parallel) "
@@ -1418,6 +1894,9 @@ def main() -> None:
     # -- 8. Elle: the closure, list-append and rw-register ------------
     elle_entries = elle_phase(card, torch.device("cuda", 0))
 
+    # -- 9. the simulator: drain, generation, checks, fused pipeline ---
+    sim_entries = simulator_phase(card, torch.device("cuda", 0))
+
     print(json.dumps({"kernels": [{
         "name": "wgl_wave", "route": "cuda",
         "source": "jepsen_etcd_tpu_torch/csrc/wgl_wave.cu",
@@ -1434,7 +1913,8 @@ def main() -> None:
         "bound_ms": b2_work["bound_ms"],
         "bound_by": "bytes" if b2_work["bytes_ms"] >= b2_work["ops_ms"]
         else "operations",
-        "library_ms": None}] + batch_entries + elle_entries}),
+        "library_ms": None}] + batch_entries + elle_entries
+        + sim_entries}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -222,9 +222,10 @@ class ColumnsBuilder:
     __slots__ = ("_tc", "_fc", "_pr", "_kid", "_tm", "_ix",
                  "values", "extras", "missing",
                  "f_index", "f_table", "key_index", "key_table",
-                 "proc_index", "proc_table", "dead")
+                 "proc_index", "proc_table", "dead", "_cursor")
 
     def __init__(self):
+        self._cursor = 0
         self._tc: list = []
         self._fc: list = []
         self._pr: list = []
@@ -293,6 +294,38 @@ class ColumnsBuilder:
                     k for k in _CORE_ORDER if k not in op)
         except Exception:
             self.dead = True
+
+    def take_chunk(self) -> Optional[OpColumns]:
+        """Drain rows recorded since the previous ``take_chunk`` as an
+        OpColumns slice (the streaming-checker feed). Non-destructive: a
+        cursor advances but the builder keeps every row, so ``finish()``
+        still returns the complete columns; intern tables are shared by
+        reference (chunk codes stay valid as the tables grow — tables
+        only ever append). Returns None when the builder is dead or no
+        new rows arrived."""
+        if self.dead:
+            return None
+        start, end = self._cursor, len(self._tc)
+        if end <= start:
+            return None
+        self._cursor = end
+        try:
+            extras = {r - start: ex for r, ex in self.extras.items()
+                      if start <= r < end}
+            missing = {r - start: m for r, m in self.missing.items()
+                       if start <= r < end}
+            return OpColumns(
+                np.asarray(self._tc[start:end], dtype=np.int8),
+                np.asarray(self._fc[start:end], dtype=np.int32),
+                np.asarray(self._pr[start:end], dtype=np.int64),
+                np.asarray(self._kid[start:end], dtype=np.int64),
+                np.asarray(self._tm[start:end], dtype=np.int64),
+                np.asarray(self._ix[start:end], dtype=np.int64),
+                self.values[start:end], extras, missing,
+                self.f_table, self.key_table, self.proc_table)
+        except Exception:
+            self.dead = True
+            return None
 
     def finish(self) -> Optional[OpColumns]:
         if self.dead:

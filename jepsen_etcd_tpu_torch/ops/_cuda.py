@@ -92,6 +92,8 @@ _INDEL = {"indel_bits_launch": (_I, [_P, _I, _P, _P, _I, _P, _P, _I, _P,
                                      ctypes.c_longlong, _P]),
           "indel_bits_smem_optin": (_I, [_I]),
           "indel_bits_state_words": (ctypes.c_longlong, [_I])}
+_DRAIN = {"drain_register_launch": (_I, [_P] * 13 + [_I, _I, _I, _I, _P]),
+          "drain_register_smem_max": (_I, [])}
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -171,3 +173,29 @@ def indel_bits(order: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
             None if scratch is None else scratch.data_ptr(),
             0 if scratch is None else scratch.shape[1], _stream(order))
     _check(lib, "indel_bits", err)
+
+
+def drain_smem_max() -> int:
+    """Bytes of shared memory csrc/drain_register.cu's machine may take
+    in one block; past it the launch needs a global scratch."""
+    return int(_lib("drain_register", _DRAIN).drain_register_smem_max())
+
+
+def drain_register(state0: tuple, planes: tuple, flags: tuple,
+                   out: torch.Tensor, scratch, threads: int) -> None:
+    """Launch csrc/drain_register.cu on the current stream: ``state0``
+    (ver0, val0, pver0, pval0) [S, K], ``planes`` (k, f, wv, co, cn)
+    [N, S] int32, ``flags`` (to, sg) [N, S] bool -> out [5, N, S] int32;
+    ``scratch`` a [4, K, S] int32 tensor for the machine in global
+    memory, or None for shared memory (the launch refuses a machine past
+    ``drain_smem_max()``). All on one CUDA device, contiguous (the
+    caller checks shapes and types)."""
+    lib = _lib("drain_register", _DRAIN)
+    N, S = planes[0].shape
+    K = state0[0].shape[1]
+    with torch.cuda.device(out.device):
+        err = lib.drain_register_launch(
+            *[t.data_ptr() for t in (*state0, *planes, *flags, out)],
+            None if scratch is None else scratch.data_ptr(),
+            N, S, K, threads, _stream(out))
+    _check(lib, "drain_register", err)

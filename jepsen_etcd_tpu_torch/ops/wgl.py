@@ -848,9 +848,8 @@ def _pack_batched_tail(fast_keys, seg_R_l, seg_I_l, lists, ilists,
     given the flat per-key-contiguous extraction lists (keys in the
     order of ``fast_keys``, required ops sorted by invoke within each
     key's segment), run interning, dead-value merge, window geometry,
-    ceilings, rank compression and per-key Packed assembly. (The
-    reference shares it with its streaming packer ``PackStream``, which
-    comes to the port with the streaming slice.)"""
+    ceilings, rank compression and per-key Packed assembly (shared with
+    the streaming packer :class:`PackStream`)."""
     (inv_l, ret_l, f_l, ver_l, v1t_l, v1v_l, v2t_l, v2v_l) = lists
     (ipos_l, if_l, i1t_l, i1v_l, i2t_l, i2v_l) = ilists
 
@@ -1090,6 +1089,89 @@ def _pack_batched_tail(fast_keys, seg_R_l, seg_I_l, lists, ilists,
         p._i_inv_rank = i_inv_rank_all[iis:iis + I] if I else empty64
         out[key] = p
     return out
+
+
+class PackStream:
+    """Streaming front-end of the batched register packer: ``feed``
+    columnar op-stream chunks (core/history.py OpColumns — e.g. the
+    ``ColumnsBuilder.take_chunk`` drain) while generation proceeds;
+    ``finish()`` returns the same ``{key: Packed}`` dict
+    :func:`pack_register_histories_batched` produces over the completed
+    history's per-key split.
+
+    Bit-identity argument: the per-op extraction pass is chunk-resumable
+    (:class:`_KeyExtract` carries the one-shot loop's exact state), keys
+    accumulate in first-seen order (matching ``split_by_key``'s group
+    order), and ``finish`` concatenates each key's lists into the same
+    per-key-contiguous flat arrays before running the SAME vectorized
+    tail (:func:`_pack_batched_tail`). The tail itself cannot run per
+    chunk — suffix-min version ceilings, dead-value merges and info
+    symmetry classes all depend on the history's future — so only the
+    per-op Python pass overlaps generation.
+
+    Any key the columnar path can't express (reference-delegation
+    semantics, malformed shapes) invalidates the whole stream: ``ok``
+    flips False, further feeds no-op, and ``finish`` returns None — the
+    checker then packs post-hoc exactly as before. Streaming is a pure
+    reuse hint, never a correctness dependency."""
+
+    def __init__(self):
+        self._keys: list = []
+        self._st: dict = {}
+        self.ok = True
+        #: total column rows consumed (ALL events, keyed or not) — the
+        #: consumer's guard that the stream saw the complete history
+        self.n_rows = 0
+        self.chunks = 0
+
+    def feed(self, cols) -> None:
+        if cols is None or not self.ok:
+            return
+        self.n_rows += len(cols)
+        self.chunks += 1
+        try:
+            for key, sub in cols.split_by_key().items():
+                st = self._st.get(key)
+                if st is None:
+                    st = self._st[key] = _KeyExtract()
+                    self._keys.append(key)
+                st.feed(_rows_from_columns(sub))
+        except (_Delegate, TypeError, ValueError):
+            self.ok = False
+
+    def finish(self) -> Optional[dict]:
+        if not self.ok:
+            return None
+        out: dict = {}
+        fast_keys: list = []
+        seg_R_l: list = []
+        seg_I_l: list = []
+        lists = tuple([] for _ in range(8))
+        ilists = tuple([] for _ in range(6))
+        try:
+            for key in self._keys:
+                st = self._st[key]
+                n_req = st.finish()
+                if n_req == 0:
+                    # no required ops: trivially linearizable, before
+                    # any indefinite op is even considered (mirrors the
+                    # batched packer's early out)
+                    out[key] = Packed(ok=True, R=0)
+                    continue
+                fast_keys.append(key)
+                seg_R_l.append(n_req)
+                seg_I_l.append(len(st.ilists[0]))
+                for dst, src in zip(lists, st.lists):
+                    dst.extend(src)
+                for dst, src in zip(ilists, st.ilists):
+                    dst.extend(src)
+        except (_Delegate, TypeError, ValueError):
+            self.ok = False
+            return None
+        if fast_keys:
+            _pack_batched_tail(fast_keys, seg_R_l, seg_I_l,
+                               lists, ilists, out)
+        return out
 
 
 def ensure_frames(p: Packed) -> None:
@@ -1557,7 +1639,10 @@ def _graph_waves(wave, running, carry: list, n_waves: int):
     torch.cuda.current_stream().wait_stream(side)
     done = 1
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    # thread-local capture: another thread may go on issuing work and
+    # allocating on the card meanwhile (the fused pipeline's generator
+    # runs beside its checker); the capture guards only this thread
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
         c = static
         for _ in range(GRAPH_WAVES):
             c = wave(c)

@@ -1,4 +1,4 @@
-"""Run-level services of the port. Only ``telemetry`` is here so far
-(the reference's ``runner/telemetry.py``, unchanged); the simulator,
-interpreter and campaign runner that the reference's ``runner/`` also
-holds are not ported yet."""
+"""Run-level services of the port: ``telemetry`` (the reference's
+``runner/telemetry.py``, unchanged) and ``stream`` (the fused gen->check
+pipeline). The simulator, interpreter and campaign runner that the
+reference's ``runner/`` also holds are not ported yet."""

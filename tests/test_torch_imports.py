@@ -33,6 +33,12 @@ PORT_MODULES = [
     "jepsen_etcd_tpu_torch.checkers.elle.wr",
     "jepsen_etcd_tpu_torch.runner",
     "jepsen_etcd_tpu_torch.runner.telemetry",
+    "jepsen_etcd_tpu_torch.runner.stream",
+    "jepsen_etcd_tpu_torch.simbatch",
+    "jepsen_etcd_tpu_torch.simbatch.heap",
+    "jepsen_etcd_tpu_torch.simbatch.engine",
+    "jepsen_etcd_tpu_torch.simbatch.threefry",
+    "jepsen_etcd_tpu_torch.simbatch.engine_v3",
     "jepsen_etcd_tpu_torch.generators",
     "jepsen_etcd_tpu_torch.generators.independent",
     "jepsen_etcd_tpu_torch.ops",
@@ -136,7 +142,10 @@ def _launch(p, dev):
                                    "independent_check",
                                    "watch_checker", "edit_distance_batch",
                                    "closure_batch", "list_append_checker",
-                                   "rw_register_checker"])
+                                   "rw_register_checker", "generate_jax",
+                                   "generate_for_opts_v3",
+                                   "default_schedule_jax",
+                                   "fused_pipeline"])
 def test_entry_points_raise_without_cuda_unless_cpu(no_cuda, entry):
     from jepsen_etcd_tpu_torch.checkers.independent import Independent
     from jepsen_etcd_tpu_torch.checkers.tpu_linearizable import \
@@ -148,9 +157,16 @@ def test_entry_points_raise_without_cuda_unless_cpu(no_cuda, entry):
                                                      RWRegisterChecker)
     from jepsen_etcd_tpu_torch.ops import closure, edit_distance, wgl, \
         wgl_mxu
+    from jepsen_etcd_tpu_torch.runner.stream import FusedPipeline
+    from jepsen_etcd_tpu_torch.simbatch import (BatchConfig,
+                                                default_schedule_jax,
+                                                generate_for_opts,
+                                                generate_jax)
     from jepsen_etcd_tpu_torch.testing import (gen_append_history,
                                                gen_wr_history, keyed)
     h, p = _tiny_pack()
+    sim = {"workload": "register", "concurrency": 4, "rate": 100.0,
+           "time_limit": 0.2, "nemesis": ["kill"]}
     call = {
         "resolve_device": lambda dev: resolve_device(dev),
         "checker": lambda dev: TPULinearizableChecker(
@@ -189,6 +205,17 @@ def test_entry_points_raise_without_cuda_unless_cpu(no_cuda, entry):
         "rw_register_checker": lambda dev: RWRegisterChecker(
             use_tpu=True, device=dev).check(
                 {}, gen_wr_history(random.Random(1), 3, 20)),
+        "generate_jax": lambda dev: {"valid?": len(generate_jax(
+            BatchConfig.from_opts(sim), [1], device=dev)[
+                "histories"][0]) > 0},
+        "generate_for_opts_v3": lambda dev: {"valid?": generate_for_opts(
+            dict(sim, gen_epoch="epoch-v3"), [1], device=dev)[
+                "epoch"] == "epoch-v3"},
+        "default_schedule_jax": lambda dev: {"valid?": len(
+            default_schedule_jax(BatchConfig.from_opts(sim), 1,
+                                 device=dev)) > 0},
+        "fused_pipeline": lambda dev: {"valid?": FusedPipeline(
+            sim, device=dev).run([1])["verdicts"] == {1: True}},
     }[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call(None)
