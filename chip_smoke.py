@@ -32,9 +32,14 @@ epoch-v2 and epoch-v3 golden pins reproduced with generation on the
 card; epoch-v3 timed with its stages; the threefry draws held against
 the CPU's; simulated histories checked (a single key through
 wgl_wave, four keys through its batched launch, stale reads caught);
-and the fused gen->check pipeline against its sequential twin. Prints
-the card's name and power limit, a ``{"kernels": [...]}`` line, and
-last ``{"ok": true, "device": ...}``.
+and the fused gen->check pipeline against its sequential twin. Last
+the checker service (``runner/checker_service.py``): a campaign of 20
+simulated register runs, each checked by the register workload's checker
+on a thread of its own through one service on a unix socket, held
+against the same runs checked in-process; the same packs over two lanes
+of the card, placed and sharded; wgl_wave at a tick's shape and the
+sharded batched rung, timed. Prints the card's name and power limit, a
+``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
 Exits non-zero, with no result line, when CUDA is unavailable or any
 phase fails. Imports nothing of JAX or of the JAX package.
 """
@@ -98,6 +103,9 @@ LADDER_SEED = 40
 #: misreports some observations
 KEYED_KEYS, KEYED_OPS, KEYED_PROCS, KEYED_SEED = 32, 2_000, 10, 2026
 KEYED_FAULTED, KEYED_INFO_RATE, KEYED_CORRUPTED = (3, 11, 19, 27), 0.01, (7,)
+#: repetitions of the whole keyed check for its median (5 since the
+#: service phase joined the script: each takes ~6 s)
+KEYED_RUNS = 5
 #: the Elle cells. The closure at the reference bench's shape: six
 #: 2,048-node planes drawn with RandomState(0) at density 2/N
 #: (bench.py:619-623, "the append checker's shape at ~30 min of
@@ -154,6 +162,17 @@ DRAIN_OPS_PER_STEP = 30
 #: one's store to the same word (a shared-memory store and load, ~30 SM
 #: cycles on Hopper)
 DRAIN_CHAIN_CYCLES = 30
+#: the checker service's campaign, after the reference's campaign cell
+#: (bench.py:937-1010: many runs' packs shipped to one service) and its
+#: service-scaling cell (bench.py:1013-1106: the same packs over one and
+#: several devices): epoch-v3 register runs at the generation cell's
+#: concurrency and rate, 4 keys a run, for T = 27 s, so that every key
+#: (13,496 entries) passes DFS_FIRST_MAX = 13,000 and the checker's
+#: default route ships it; SVC_STALE_SEEDS more seeds with stale reads
+#: injected; the simulated single-key cell's seeds give a second group
+#: shape; the sharded rung runs on SVC_RUNG_KEYS of the campaign's keys
+SVC_TIME_LIMIT, SVC_SEEDS, SVC_STALE_SEEDS = 27.0, 16, 4
+SVC_LONG_SEEDS, SVC_RUNG_KEYS, SVC_TICK_S = 4, 4, 0.05
 #: threefry-2x32 a pair of words, counted from threefry.py's _hash: 20
 #: rounds of an add and its mask, a rotate (two shifts, a mask, an or)
 #: and a xor; 5 key injections of three adds and two masks; the initial
@@ -695,12 +714,12 @@ def keyed_register_check(card: str) -> list:
     # the whole check, repeated, with the card's utilization sampled
     walls = []
     with GpuBusy() as busy:
-        for _ in range(11):
+        for _ in range(KEYED_RUNS):
             t0 = time.perf_counter()
             checker.check({}, h)
             walls.append(time.perf_counter() - t0)
     walls.sort()
-    wmed, wp90 = walls[5], walls[9]
+    wmed, wmax = walls[len(walls) // 2], walls[-1]
 
     # wgl_wave's batched launch at the cell's shape: device time alone,
     # and held against two lanes of the card and the plain version
@@ -724,7 +743,7 @@ def keyed_register_check(card: str) -> list:
         waves, (tab.shape[2] + scal.shape[2]) * 4, len(b1), wk)
     idle = "not measured" if busy.share is None else f"{1 - busy.share:.3f}"
     print(f"keyed check timing on {card}: wall over {len(walls)} runs "
-          f"median {wmed:.4f} s, p90 {wp90:.4f} s; device idle share "
+          f"median {wmed:.4f} s, max {wmax:.4f} s; device idle share "
           f"{idle} (1 - mean nvidia-smi utilization over the runs; "
           f"1 - B1 / median check = {1 - b1_ms / 1e3 / wmed:.3f}); "
           f"wgl_wave batched {len(b1)} keys (k_pad {tab.shape[0]}, r_pad "
@@ -1511,6 +1530,392 @@ def simulator_phase(card: str, dev) -> list:
              else "operations", "library_ms": None}]
 
 
+def service_campaign(card: str, dev) -> dict:
+    """The checker service (``runner/checker_service.py``) driven by a
+    campaign: SVC_SEEDS epoch-v3 register runs and SVC_STALE_SEEDS more
+    with stale reads injected, each checked by the register workload's
+    checker, ``Independent(Compose({linear, session}))``, on a client
+    thread of its own against one service on a unix socket (every key
+    ships by the checker's default route), then the same runs checked
+    in-process one after another on the same card. Then the runs' packs
+    again through services over one lane and over two lanes of the
+    card: groups placed sticky (with the simulated single-key cell's
+    packs as a second group shape), then the campaign's one group split
+    over both lanes in one tick. Every dict is held against the one-lane
+    run's; fails on any fallback, error reply or broken ledger. Returns
+    what the kernels line needs."""
+    import shutil
+    import tempfile
+    import threading
+    import torch
+    from jepsen_etcd_tpu_torch.checkers import (
+        SessionGuarantees, TPULinearizableChecker, compose,
+        independent_checker)
+    from jepsen_etcd_tpu_torch.checkers.tpu_linearizable import \
+        DFS_FIRST_MAX
+    from jepsen_etcd_tpu_torch.ops import wgl, wgl_mxu
+    from jepsen_etcd_tpu_torch.runner import checker_service as svc_mod
+    from jepsen_etcd_tpu_torch.runner import telemetry
+    from jepsen_etcd_tpu_torch.runner.telemetry import Hist, Telemetry
+    from jepsen_etcd_tpu_torch.simbatch import generate_for_opts
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    opts = dict(GEN_OPTS, gen_epoch="epoch-v3", time_limit=SVC_TIME_LIMIT)
+    t0 = time.perf_counter()
+    runs = generate_for_opts(opts, list(range(SVC_SEEDS)),
+                             device=dev)["histories"]
+    stale = list(range(SVC_SEEDS, SVC_SEEDS + SVC_STALE_SEEDS))
+    runs += generate_for_opts(dict(opts, inject_stale_reads=True), stale,
+                              device=dev)["histories"]
+    gen_s = time.perf_counter() - t0
+    subs = [h.split_by_key() for h in runs]
+    n_keys = sum(len(s) for s in subs)
+    smallest = min(len(k) for s in subs for k in s.values())
+    print(f"service campaign: {len(runs)} epoch-v3 register runs "
+          f"({SVC_SEEDS} clean, {SVC_STALE_SEEDS} with stale reads) at "
+          f"concurrency {opts['concurrency']}, rate {opts['rate']:.0f}, "
+          f"time_limit T = {SVC_TIME_LIMIT} s: {n_keys} keys, the "
+          f"smallest {smallest} entries (DFS_FIRST_MAX {DFS_FIRST_MAX}); "
+          f"generated on the card in {gen_s:.2f} s", flush=True)
+
+    def checker():
+        return independent_checker(compose({
+            "linear": TPULinearizableChecker(),
+            "session": SessionGuarantees()}))
+
+    # -- in-process, one run after another ------------------------------
+    local, local_tels = [], []
+    sync()
+    wgl_mxu.LAUNCHES = 0
+    t0 = time.perf_counter()
+    for h in runs:
+        tel = Telemetry()
+        telemetry.set_thread_current(tel)
+        try:
+            local.append(checker().check({}, h))
+        finally:
+            telemetry.set_thread_current(None)
+        local_tels.append(tel.summary())
+    sync()
+    seq_s = time.perf_counter() - t0
+    local_launches = wgl_mxu.LAUNCHES
+
+    # -- the campaign through one service (the main path) ---------------
+    sock_dir = tempfile.mkdtemp(prefix="jet-")
+    path = os.path.join(sock_dir, "checker.sock")
+    test = {"checker_service": path}
+    tels = [Telemetry(trace=f"run-{i}") for i in range(len(runs))]
+    got: list = [None] * len(runs)
+    errors: list = []
+
+    def run(i: int) -> None:
+        telemetry.set_thread_current(tels[i])
+        try:
+            got[i] = checker().check(test, runs[i])
+        except Exception as e:  # reported below, fails the phase
+            errors.append(f"run {i}: {e!r}")
+
+    svc = svc_mod.CheckerService(path=path, tick_s=SVC_TICK_S).start()
+    try:
+        threads = [threading.Thread(target=run, args=(i,),
+                                    name=f"campaign-run{i}")
+                   for i in range(len(runs))]
+        sync()
+        wgl_mxu.LAUNCHES = 0
+        with GpuBusy() as busy:
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            svc_s = time.perf_counter() - t0
+        main_launches = wgl_mxu.LAUNCHES
+        alive = [t.name for t in threads if t.is_alive()]
+        st = svc.stats()
+    finally:
+        svc.close()
+        svc_mod.reset_clients()
+        shutil.rmtree(sock_dir, ignore_errors=True)
+    if errors or alive:
+        fail(f"service campaign: {errors or alive}")
+    ctr = st["counters"]
+    run_ctr = [t.summary()["counters"] for t in tels]
+    fallbacks = sum(c.get("service.fallback", 0) for c in run_ctr)
+    shipped = sum(c.get("service.shipped", 0) for c in run_ctr)
+    disp = {k[len("service.device_dispatches."):]: v
+            for k, v in ctr.items()
+            if k.startswith("service.device_dispatches.")}
+    qwait = Hist.from_dict(st["hists"]["service.queue_wait_s"])
+    lane_busy = {k[len("service.device_busy_s."):]: v
+                 for k, v in ctr.items()
+                 if k.startswith("service.device_busy_s.")}
+    run_pack = [t.summary()["spans"].get("wgl.pack-batch", {})
+                .get("total_s", 0.0) for t in tels]
+    idle = "not measured" if busy.share is None \
+        else f"{1 - busy.share:.3f}"
+    svc_launches = ctr.get("service.wgl_wave_launches", 0)
+    same, relabelled = same_campaign(got, local)
+    print(f"service campaign on {card}: {len(runs)} runs on "
+          f"{len(runs)} client threads through one service over "
+          f"{len(st['devices'])} lane(s) {st['devices']}: wall "
+          f"{svc_s:.3f} s; the same runs checked in-process one after "
+          f"another on the card: {seq_s:.3f} s; every run's dict = its "
+          f"in-process dict: {same} ({relabelled} ladder keys compared "
+          f"on verdict and depth); valid? {[r['valid?'] for r in got]}; "
+          f"service.fallback {fallbacks}, shutdown leaked threads "
+          f"{svc.shutdown_leaked_threads}", flush=True)
+    print(f"service ticks on {card}: ticks {ctr['service.ticks']}, "
+          f"group_ticks {ctr['service.group_ticks']}, coalesced "
+          f"{ctr['service.coalesced']}, batch occupancy "
+          f"{ctr['service.batch_occupancy']} packs at most, median queue "
+          f"wait {qwait.percentile(50):.4f} s (p95 "
+          f"{qwait.percentile(95):.4f}); shipped by the runs {shipped} = "
+          f"submitted {ctr['service.submitted']}; per-lane dispatches "
+          f"{disp} = group_ticks + shard_fanout "
+          f"{ctr['service.group_ticks']} + "
+          f"{ctr.get('service.shard_fanout', 0)}; where the wall went: "
+          f"the runs' packing {sum(run_pack):.3f} s in all (client "
+          f"threads), the dispatcher's table padding "
+          f"{ctr['service.pack_s']:.3f} s, the lanes' dispatches "
+          f"{lane_busy} s; device idle share {idle} (1 - mean "
+          f"nvidia-smi utilization over the service's wall)", flush=True)
+    if not same:
+        fail("a run's dict through the service differs from in-process")
+    if any(r["valid?"] is not (i < SVC_SEEDS) for i, r in enumerate(got)):
+        fail(f"campaign verdicts {[r['valid?'] for r in got]}: clean runs "
+             f"must be valid, stale-read runs not")
+    if fallbacks or ctr.get("service.bad_requests"):
+        fail(f"service fallbacks {fallbacks}, bad requests "
+             f"{ctr.get('service.bad_requests')}")
+    if shipped != ctr["service.submitted"] or shipped != n_keys:
+        fail(f"shipped {shipped}, submitted {ctr['service.submitted']}, "
+             f"keys {n_keys}")
+    if sum(disp.values()) != ctr["service.group_ticks"] + \
+            ctr.get("service.shard_fanout", 0):
+        fail(f"per-lane ledger {disp} against {ctr}")
+    if svc.shutdown_leaked_threads:
+        fail("the service leaked threads at shutdown")
+
+    # -- the packs again, over one and two lanes of the card ------------
+    t0 = time.perf_counter()
+    run_packs = []
+    for s in subs:
+        packed = wgl.pack_register_histories_batched(s)
+        run_packs.append([packed[k] for k in s])
+    pack_s = (time.perf_counter() - t0) / len(runs)
+    ser, wire = [], []
+    for packs in run_packs:
+        t0 = time.perf_counter()
+        wire.append(sum(len(wgl.serialize_packed(p)) for p in packs))
+        ser.append(time.perf_counter() - t0)
+    print(f"service device use on {card}: wgl_wave launches by the "
+          f"service {svc_launches} (its ledger; the process counted "
+          f"{main_launches}) against {local_launches} in-process (one "
+          f"per run per group); pack {pack_s:.4f} s a run (batched "
+          f"packer, 4 keys), serialize {statistics.median(ser):.4f} s a "
+          f"run (median), {statistics.median(wire):.0f} bytes a run",
+          flush=True)
+    if svc_launches != main_launches or not 1 <= svc_launches <= \
+            local_launches:
+        fail(f"wgl_wave launches: service {svc_launches}, process "
+             f"{main_launches}, in-process {local_launches}")
+    camp = [p for packs in run_packs for p in packs]
+    long_h = generate_for_opts(dict(SIM_SINGLE_OPTS, gen_epoch="epoch-v3"),
+                               list(range(SVC_LONG_SEEDS)),
+                               device=dev)["histories"]
+    longs = [p for h in long_h for p in
+             wgl.pack_register_histories_batched(h.split_by_key()).values()]
+    groups = {wgl.group_key(p) for p in camp + longs}
+    one_lane = wgl_mxu.batch_lanes
+
+    def through(n: int, requests: list) -> tuple:
+        """Each request through one service over n lanes of the card
+        (one after another); returns (dicts per request, stats)."""
+        wgl_mxu.batch_lanes = (
+            lambda device=None: [torch.device(device)]
+            if device is not None else [dev] * n)
+        d = tempfile.mkdtemp(prefix="jet-")
+        s = svc_mod.CheckerService(path=os.path.join(d, "s.sock"),
+                                   tick_s=SVC_TICK_S).start()
+        try:
+            client = svc_mod.CheckerClient(s.path)
+            outs = [client.check(r) for r in requests]
+            client.close()
+            return outs, s.stats()
+        finally:
+            s.close()
+            shutil.rmtree(d, ignore_errors=True)
+            wgl_mxu.batch_lanes = one_lane
+
+    t0 = time.perf_counter()
+    (one, one_camp), st1 = through(1, [camp + longs, camp])
+    one_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (two, two_camp), st2 = through(2, [camp + longs, camp])
+    two_s = time.perf_counter() - t0
+    c2 = st2["counters"]
+    disp2 = {k[len("service.device_dispatches."):]: v
+             for k, v in c2.items()
+             if k.startswith("service.device_dispatches.")}
+    print(f"service over two lanes of the card ({card}): {len(camp)} "
+          f"campaign packs in one group and {len(longs)} packs of the "
+          f"simulated single-key cell, {len(groups)} groups: placed "
+          f"{st2['placement']}, sticky; then the campaign's group alone, "
+          f"split over both lanes ({c2.get('service.sharded_ticks', 0)} "
+          f"sharded tick, fan-out {c2.get('service.shard_fanout', 0)}); "
+          f"per-lane dispatches {disp2}; wgl_wave launches "
+          f"{c2.get('service.wgl_wave_launches')} (one lane: "
+          f"{st1['counters'].get('service.wgl_wave_launches')}); walls "
+          f"{two_s:.3f} s against {one_s:.3f} s on one lane; dicts = one "
+          f"lane's: {two == one and two_camp == one_camp == one[:len(camp)]}",
+          flush=True)
+    if None in (one, two, one_camp, two_camp) or two != one or \
+            two_camp != one_camp or one_camp != one[:len(camp)]:
+        fail("the service's dicts over two lanes differ from one lane's")
+    if len(groups) != 2 or len(set(st2["placement"].values())) != 2 or \
+            c2.get("service.sharded_ticks") != 1 or \
+            sum(disp2.values()) != c2["service.group_ticks"] + \
+            c2["service.shard_fanout"]:
+        fail(f"placement over two lanes: {st2['placement']}, {c2}")
+    return {"camp": camp, "occupancy": ctr["service.batch_occupancy"],
+            "launches": svc_launches}
+
+
+def same_campaign(got: list, want: list) -> tuple:
+    """(equal, relabelled): whether each run's dict through the service
+    equals its in-process dict. A key the ladder answered may have
+    ridden another group in the service's tick than in its own run (the
+    batched rung, not a lone climb), so for those keys the rung labels
+    and the peak frontier are set aside and the verdict and the depth
+    compared; ``relabelled`` counts them."""
+    drop = ("rungs", "engine", "batched", "peak-frontier")
+
+    def norm(res: dict) -> tuple:
+        res = json.loads(json.dumps(res, default=repr))
+        n = 0
+        for key_res in res.get("results", {}).values():
+            lin = key_res.get("linear", {})
+            if lin.get("engine") == "jnp-ladder" or lin.get("batched"):
+                n += 1
+                for k in drop:
+                    lin.pop(k, None)
+        return res, n
+
+    pairs = [(norm(a), norm(b)) for a, b in zip(got, want)]
+    return (all(a[0] == b[0] for a, b in pairs),
+            sum(a[1] for a, _ in pairs))
+
+
+def service_phase(card: str, dev) -> list:
+    """The service campaign (``service_campaign``), then the kernels as
+    it runs them: wgl_wave at a tick's shape (the largest tick's count
+    of the campaign's keys in one launch) held exactly against its plain
+    version and timed, and the sharded batched rung (B3's sharded form,
+    PyTorch ops: each lane's keys on a thread and a stream of its own)
+    over two lanes of the card, held against the unsharded rung and
+    timed, with each key's waves. Returns the kernels line's entries."""
+    import numpy as np
+    import torch
+    from jepsen_etcd_tpu_torch.ops import wgl, wgl_mxu
+
+    res = service_campaign(card, dev)
+    camp = res["camp"]
+    # wgl_wave at a tick's shape
+    k = max(1, min(int(res["occupancy"]), len(camp)))
+    tick = camp[:k]
+    k_pad = wgl_mxu._batch_geometry(k, 1)[0]
+    tab, scal, wk = tables_for(tick, dev, k_pad)
+    b1_ms = cuda_ms(lambda: wgl_mxu.wave_search(tab, scal, wk), 11)
+    got = wgl_mxu.wave_search(tab, scal, wk).cpu().numpy()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = wgl_mxu.wave_search_reference(tab, scal, wk)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    ref = ref.cpu().numpy()
+    b1_err = int(np.abs(got.astype(np.int64) - ref).max())
+    waves = int(ref[:k, 3].sum())
+    bound, bytes_ms, ops_ms = wgl_bound(
+        waves, (tab.shape[2] + scal.shape[2]) * 4, k, wk)
+    print(f"wgl_wave at the service's tick shape on {card}: {k} keys "
+          f"(k_pad {k_pad}, r_pad {tab.shape[1]}, wk {wk}) in one launch "
+          f"{b1_ms:.3f} ms (median of 11, CUDA events), plain "
+          f"{plain_ms:.1f} ms, {waves} waves in all, bound {bound:.4f} ms "
+          f"(bytes {bytes_ms:.4f} ms, operations {ops_ms:.4f} ms); "
+          f"max_abs_err {b1_err}", flush=True)
+    if b1_err:
+        fail("wgl_wave disagrees with its plain version at the tick shape")
+    del tab, scal
+
+    # the sharded rung over two lanes of the card, against one lane
+    rung = camp[:SVC_RUNG_KEYS]
+    one_lane = wgl_mxu.batch_lanes
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = wgl.check_packed_batch(rung, try_fused=False, device=dev)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    wgl_mxu.batch_lanes = lambda device=None: (
+        [torch.device(device)] if device is not None else [dev, dev])
+    try:
+        wgl.SHARDED_LAUNCHES = 0
+        t0 = time.perf_counter()
+        sharded = wgl.check_packed_batch(rung, try_fused=False,
+                                         shard=True)
+        torch.cuda.synchronize()
+        rung_s = time.perf_counter() - t0
+        rung_launches = wgl.SHARDED_LAUNCHES
+    finally:
+        wgl_mxu.batch_lanes = one_lane
+    strip = [{k: v for k, v in o.items() if k != "_resume"}
+             for o in want]
+    sharded = [{k: v for k, v in o.items() if k != "_resume"}
+               for o in sharded]
+    rung_err = max(abs(a.get(f, 0) - b.get(f, 0))
+                   for a, b in zip(sharded, strip)
+                   for f in ("waves", "peak-frontier"))
+    rung_waves = [o.get("waves") for o in sharded]
+    key = wgl.group_key(rung[0])
+    tables = wgl.prepare_bucket_group(rung, list(range(len(rung))),
+                                      key[0], key[1])
+    rung_bytes = sum(a[:len(rung)].nbytes for a in tables.stacked.values())
+    rbytes_ms = rung_bytes / HBM_BYTES_PER_S * 1e3
+    rops_ms = (sum(rung_waves) * 128 * key[2] * WGL_OPS_PER_CANDIDATE
+               / ALU32_OPS_PER_S * 1e3)
+    print(f"sharded batched rung on {card}: {len(rung)} campaign keys at "
+          f"rung 128 (kernel not run: try_fused=False) split over two "
+          f"lanes of the card, {rung_launches} lane launches: "
+          f"{rung_s:.3f} s; the unsharded rung on one lane {plain_s:.3f} "
+          f"s; waves a key {rung_waves} "
+          f"({rung_s / max(1, max(rung_waves)) * 1e3:.3f} ms a wave of "
+          f"the longest lane); bound {max(rbytes_ms, rops_ms):.4f} ms "
+          f"(operations: {sum(rung_waves)} waves x 128 states x "
+          f"{key[2]} ops x {WGL_OPS_PER_CANDIDATE}: {rops_ms:.4f} ms; "
+          f"bytes: {rung_bytes} of tables {rbytes_ms:.4f} ms); dicts = "
+          f"unsharded: {sharded == strip}", flush=True)
+    if sharded != strip or rung_launches != 2 or \
+            not all(o.get("batched") for o in sharded):
+        fail(f"sharded rung {sharded} != unsharded {strip}")
+    return [{"name": "wgl_wave_service", "route": "cuda",
+             "source": "jepsen_etcd_tpu_torch/csrc/wgl_wave.cu",
+             "replaces": "jepsen_etcd_tpu/ops/wgl_mxu.py:902",
+             "launches": res["launches"], "max_abs_err": b1_err,
+             "ms": b1_ms, "plain_ms": plain_ms, "bound_ms": bound,
+             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+             "library_ms": None},
+            {"name": "wgl_rung_sharded", "route": "torch",
+             "source": "jepsen_etcd_tpu_torch/ops/wgl.py",
+             "replaces": "jepsen_etcd_tpu/ops/wgl.py:1966",
+             "launches": rung_launches, "max_abs_err": rung_err,
+             "ms": rung_s * 1e3, "plain_ms": plain_s * 1e3,
+             "bound_ms": max(rbytes_ms, rops_ms),
+             "bound_by": "bytes" if rbytes_ms >= rops_ms
+             else "operations", "library_ms": None}]
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1897,6 +2302,9 @@ def main() -> None:
     # -- 9. the simulator: drain, generation, checks, fused pipeline ---
     sim_entries = simulator_phase(card, torch.device("cuda", 0))
 
+    # -- 10. the checker service: a campaign through one service --------
+    svc_entries = service_phase(card, torch.device("cuda", 0))
+
     print(json.dumps({"kernels": [{
         "name": "wgl_wave", "route": "cuda",
         "source": "jepsen_etcd_tpu_torch/csrc/wgl_wave.cu",
@@ -1914,7 +2322,7 @@ def main() -> None:
         "bound_by": "bytes" if b2_work["bytes_ms"] >= b2_work["ops_ms"]
         else "operations",
         "library_ms": None}] + batch_entries + elle_entries
-        + sim_entries}),
+        + sim_entries + svc_entries}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -9,6 +9,11 @@ capacity ladder and the spill BFS (ops/wgl.py). Soundness contract: an
 engine answers definitively only when its preconditions hold; anything
 else falls back to the CPU oracle — the device path can be fast, it
 must never be wrong.
+
+With a checker service configured (``test["checker_service"]`` or
+``JEPSEN_ETCD_TPU_CHECKER_SERVICE``; ``runner/checker_service.py``) the
+device-bound packs ship to it and its verdicts come back to the same
+``_finalize``; a dead service means the same packs are checked here.
 """
 
 from __future__ import annotations
@@ -20,10 +25,21 @@ from typing import Optional
 from ..device import resolve_device
 from ..models import Mutex, VersionedRegister
 from ..ops import wgl
+from ..runner import telemetry
 from .core import Checker
 from .linearizable import check_history, history_entries
 
 logger = logging.getLogger("jepsen_etcd_tpu_torch.checkers")
+
+
+def _tally_engine(out: dict) -> dict:
+    """Count which engine produced this verdict (``engine.mxu-wave``,
+    ``engine.jnp-ladder``, ``engine.cpu-oracle``) into the run's
+    telemetry."""
+    telemetry.current().counter(
+        "engine." + str(out.get("engine") or out.get("checker")
+                        or "unknown"))
+    return out
 
 #: histories at or below this many entries (invoke + completion) route
 #: to the native DFS before any device packing. Copied from the
@@ -40,8 +56,10 @@ class TPULinearizableChecker(Checker):
     """``device`` is where the search runs: ``cuda`` unless the caller
     passes another (``"cpu"`` runs the wave kernel's plain version and
     the ladder on the CPU). With no device named, ``check_batch``
-    spreads its wave-kernel launches over every visible card. ``f_max``
-    set skips the wave kernel and starts the ladder at that rung."""
+    spreads its wave-kernel launches over every visible card, and a
+    service-down fallback places its ladder groups as the service would
+    (``checker_service.fallback_device_for``). ``f_max`` set skips the
+    wave kernel and the service, and starts the ladder at that rung."""
 
     def __init__(self, model_fn=None, fallback: bool = True,
                  f_max: Optional[int] = None,
@@ -119,6 +137,46 @@ class TPULinearizableChecker(Checker):
                                      adapter=wgl.mutex_adapter)
         return None
 
+    def _service_check(self, test, packs: list) -> Optional[list]:
+        """Ship device-bound packs to the checker service when one is
+        configured, returning verdicts aligned with packs — or None,
+        meaning "check in-process" (counted as ``service.fallback``).
+        Only device-bound work ships: the size-cutoff routing ran before
+        packing, and the diagnostics, overflow DFS and fallback ladder
+        all run here on what comes back (``_finalize``)."""
+        from ..runner import checker_service as svc
+        if svc.endpoint_for(test) is None:
+            return None
+        client = svc.client_for(test)
+        tel = telemetry.current()
+        # the run's trace id rides with the packs: the service stamps it
+        # on the tick span, so the shipped == submitted ledger joins
+        # per run
+        outs = client.check(packs, trace=tel.trace) \
+            if client is not None else None
+        if outs is None:
+            tel.counter("service.fallback")
+        else:
+            # producer-side ledger: summed over a campaign's runs,
+            # service.shipped equals the service's service.submitted
+            tel.counter("service.checks")
+            tel.counter("service.shipped", len(packs))
+            wait = getattr(client, "last_queue_wait_s", None)
+            if wait is not None:
+                tel.counter("service.queue_wait_s", wait)
+                tel.hist("service.queue_wait_s", wait)
+        return outs
+
+    def _fallback_placement(self, test):
+        """The ``group_key -> device`` callback of a service-down
+        fallback (the service's sticky placement over every lane), or
+        None: no service configured, a device named by the caller, or
+        fewer than two lanes."""
+        from ..runner import checker_service as svc
+        if self.lanes_device is not None or svc.endpoint_for(test) is None:
+            return None
+        return svc.fallback_device_for(telemetry.current())
+
     def _finalize(self, history, out: dict, pack, band) -> dict:
         """Post-process one kernel verdict into a checker result,
         attaching CPU counterexample diagnostics / fallback as needed."""
@@ -145,11 +203,17 @@ class TPULinearizableChecker(Checker):
         path where the BFS carries the whole frontier, so the CPU oracle
         goes first; the budgeted spill BFS, resumed from the frozen
         frontier, is the complete last resort."""
-        resume = out.pop("_resume")
+        resume = out.pop("_resume", None)
         cpu = self._fallback(history, out.get("reason", "overflow"))
         if cpu["valid?"] != "unknown":
             return cpu
-        out2 = wgl.spill_packed(pack, *resume)
+        if resume is not None:
+            out2 = wgl.spill_packed(pack, *resume)
+        else:
+            # a service verdict: its frozen frontier stayed there, so
+            # the search runs again here, spill included
+            out2 = wgl.check_packed(pack, f_max=self.f_max, spill=True,
+                                    device=self.device)
         # no diagnostics DFS here: the DFS just exhausted its budget
         out2["checker"] = "tpu-wgl"
         if out2["valid?"] == "unknown":
@@ -187,6 +251,9 @@ class TPULinearizableChecker(Checker):
         return self._fallback(history, reason, blowup=blowup)
 
     def check(self, test, history, opts=None, _band=None) -> dict:
+        return _tally_engine(self._check(test, history, opts, _band))
+
+    def _check(self, test, history, opts=None, _band=None) -> dict:
         small, small_unknown, band_budget = \
             self._small_history_check(history) if _band is None else _band
         if small is not None:
@@ -196,7 +263,8 @@ class TPULinearizableChecker(Checker):
             return self._fallback_after_band(
                 history, "model has no kernel packing", False,
                 small_unknown, band_budget)
-        p = pack(history)
+        with telemetry.current().span("wgl.pack", ops=len(history)):
+            p = pack(history)
         if not p.ok:
             return self._fallback_after_band(
                 history, p.reason, bool(p.blowup),
@@ -214,9 +282,22 @@ class TPULinearizableChecker(Checker):
                 return cpu
             small_unknown, band_budget = cpu, self.FALLBACK_MAX_CONFIGS
         # with a fallback available, the spill BFS waits until the DFS
-        # has had its (cheaper) shot — see _overflow
-        out = wgl.check_packed(p, f_max=self.f_max,
-                               spill=not self.fallback, device=self.device)
+        # has had its (cheaper) shot — see _overflow. The service rides
+        # the same deferral (its batch runs spill=False), so it is only
+        # tried when a fallback exists
+        out = None
+        svc_tried = self.f_max is None and self.fallback
+        if svc_tried:
+            svc_outs = self._service_check(test, [p])
+            if svc_outs is not None:
+                out = svc_outs[0]
+        if out is None:
+            device = self.device
+            dev_for = self._fallback_placement(test) if svc_tried else None
+            if dev_for is not None:
+                device = dev_for(wgl.group_key(p))
+            out = wgl.check_packed(p, f_max=self.f_max,
+                                   spill=not self.fallback, device=device)
         return self._finalize(history, out, pack=p,
                               band=(None, small_unknown, band_budget))
 
@@ -240,7 +321,7 @@ class TPULinearizableChecker(Checker):
             band = self._small_history_check(subhistories[k],
                                              band=batch_band)
             if band[0] is not None:
-                results[k] = band[0]
+                results[k] = _tally_engine(band[0])
             else:
                 big_keys.append(k)
                 bands[k] = band
@@ -252,28 +333,49 @@ class TPULinearizableChecker(Checker):
                                           _band=bands[k])
                             for k in big_keys})
             return results
-        packed = pack_batch({k: subhistories[k] for k in big_keys})
+        with telemetry.current().span("wgl.pack-batch",
+                                      keys=len(big_keys)):
+            packed = pack_batch({k: subhistories[k] for k in big_keys})
         packs = [packed[k] for k in big_keys]
-        outs: list = [None] * len(big_keys)
+        # campaign mode: the checker service coalesces these packs with
+        # every other run's into one dispatch per group per tick
+        svc_outs = self._service_check(test, packs) \
+            if self.f_max is None else None
+        if svc_outs is not None:
+            outs = svc_outs
+        else:
+            outs = self._check_packs_here(test, packs)
+        # unpackable keys come back "unknown" with the pack reason;
+        # _finalize routes those through the CPU fallback and top-rung
+        # overflows through the DFS-then-spill ordering
+        results.update({k: _tally_engine(
+                            self._finalize(subhistories[k], out, pack=p,
+                                           band=bands[k]))
+                        for (k, out, p) in zip(big_keys, outs, packs)})
+        return results
+
+    def _check_packs_here(self, test, packs: list) -> list:
+        """The in-process device path of ``check_batch``: the wave
+        kernel over every pack (one launch per lane per group, all
+        launched before one readback), then the batched ladder for the
+        keys it could not take (info ops, wide ids) or whose frontier
+        overflowed."""
+        outs: list = [None] * len(packs)
+        device_for = None
         if self.f_max is None:
             from ..ops import wgl_mxu
+            device_for = self._fallback_placement(test)
             wgl_mxu.collect_packed_batch_mxu(
                 wgl_mxu.launch_packed_batch_mxu(
                     packs, device=self.lanes_device), outs)
-        # keys the wave kernel couldn't take (info ops, wide ids) or
-        # whose frontier overflowed ride the batched ladder
         rest = [i for i, out in enumerate(outs)
                 if out is None or out.get("overflow")]
         if rest:
             rest_outs = wgl.check_packed_batch(
                 [packs[i] for i in rest], f_max=self.f_max,
-                device=self.device)
+                try_fused=False,
+                device=None if device_for is not None else self.device,
+                device_for=device_for)
             for i, out in zip(rest, rest_outs):
                 outs[i] = out
-        # unpackable keys come back "unknown" with the pack reason;
-        # _finalize routes those through the CPU fallback and top-rung
-        # overflows through the DFS-then-spill ordering
-        results.update({k: self._finalize(subhistories[k], out, pack=p,
-                                           band=bands[k])
-                        for (k, out, p) in zip(big_keys, outs, packs)})
-        return results
+        return outs

@@ -22,7 +22,10 @@ API).
 Many keys (the keyed register check) pack in one columnar pass
 (``pack_register_histories_batched``); the wave kernel takes every key
 it can (``wgl_mxu.launch_packed_batch_mxu``) and ``check_packed_batch``
-runs the rest on one batched ladder rung per key group.
+runs the rest on one batched ladder rung per key group (on the card it
+runs the wave kernel first itself, as the checker service calls it),
+placed on one device or split over lanes. ``serialize_packed`` is the
+wire format the service receives packs in.
 
 Frontier rows carry uint32 mask and count words in int64 tensors, so
 their unsigned order survives; every shift masks back to 32 bits.
@@ -31,7 +34,10 @@ their unsigned order survives; every shift masks back to 32 bits.
 from __future__ import annotations
 
 import dataclasses
+import json
+import threading
 import time
+from collections.abc import Mapping
 from dataclasses import dataclass
 from typing import Any, Optional
 
@@ -40,7 +46,7 @@ import torch
 
 from ..checkers.linearizable import history_entries
 from ..core.history import TYPE_NAMES, History
-from ..device import resolve_device
+from ..device import lane_stream, resolve_device
 from .common import UnsupportedValue, ValueIds, as_version, \
     register_value_sets
 
@@ -81,6 +87,13 @@ SYNC_EVERY = 8
 #: issues about 220 small operations a wave and waits on their launches
 GRAPH_MIN_WAVES = 256
 GRAPH_WAVES = 32
+#: held while a CUDA graph is captured: captures never overlap, even
+#: from the checker service's lane threads
+_CAPTURE_LOCK = threading.Lock()
+#: lanes run by the sharded batched rung in this process (one per lane
+#: that had keys, per group; a caller may reset it to 0 to count a run)
+SHARDED_LAUNCHES = 0
+_sharded_lock = threading.Lock()
 
 _M32 = 0xFFFFFFFF
 
@@ -1229,6 +1242,87 @@ def ensure_frames(p: Packed) -> None:
         p.i_static_ok = np.zeros((R, 0), dtype=bool)
 
 
+# ---------------------------------------------------------------------------
+# Packed wire format (the checker service's): a runner packs once and
+# ships the compact per-op vectors (~32 B/op); the frame tables are the
+# lazy fields ensure_frames rebuilds from them, so they never travel.
+# The bytes equal the reference's for the same history.
+
+#: the lazy frame tables ensure_frames materializes — never serialized
+FRAME_FIELDS = frozenset((
+    "static_ok", "f_code", "a1", "a2", "ver", "pred_frame", "upd_mask",
+    "ceil_frame", "i_static_ok", "ipred_frame",
+))
+
+
+def serialize_packed(p: Packed) -> bytes:
+    """One Packed -> bytes: a JSON header (scalars + array manifest)
+    followed by the raw C-contiguous array payloads, no pickle."""
+    scalars: dict = {}
+    arrays: list = []
+    blobs: list = []
+    for f in dataclasses.fields(Packed):
+        if f.name in FRAME_FIELDS:
+            continue
+        v = getattr(p, f.name)
+        if v is None or isinstance(v, (bool, int, str)):
+            scalars[f.name] = v
+        else:
+            a = np.ascontiguousarray(v)
+            arrays.append([f.name, a.dtype.str, list(a.shape)])
+            blobs.append(a.tobytes())
+    head = json.dumps({"v": 1, "scalars": scalars,
+                       "arrays": arrays}).encode()
+    return head + b"\n" + b"".join(blobs)
+
+
+def deserialize_packed(buf: bytes) -> Packed:
+    """Inverse of serialize_packed; the frame tables stay lazy.
+
+    The manifest is validated against the payload before any array is
+    built: field names must be real non-frame Packed fields (a hostile
+    header cannot set arbitrary attributes), shapes non-negative
+    integers, and the manifest's byte count must equal the payload's.
+    Raises ValueError otherwise (the service answers it with an error
+    reply and keeps the connection)."""
+    nl = buf.index(b"\n")
+    head = json.loads(buf[:nl].decode())
+    if head.get("v") != 1:
+        raise ValueError(f"unknown Packed wire version {head.get('v')}")
+    wire_fields = {f.name for f in dataclasses.fields(Packed)} \
+        - FRAME_FIELDS
+    scalars = head.get("scalars")
+    arrays = head.get("arrays")
+    if not isinstance(scalars, dict) or not isinstance(arrays, list):
+        raise ValueError("malformed Packed header")
+    off = nl + 1
+    manifest = []
+    for entry in arrays:
+        name, dtype, shape = entry
+        if name not in wire_fields:
+            raise ValueError(f"unknown Packed field {name!r}")
+        if not isinstance(shape, list) \
+                or any(not isinstance(d, int) or d < 0 for d in shape):
+            raise ValueError(f"bad shape for {name!r}: {shape!r}")
+        dt = np.dtype(dtype)
+        n = int(np.prod(shape, dtype=np.int64)) if shape else 1
+        manifest.append((name, dt, shape, n, off))
+        off += n * dt.itemsize
+    if off != len(buf):
+        raise ValueError(
+            f"Packed payload length mismatch: manifest claims "
+            f"{off - nl - 1} bytes, got {len(buf) - nl - 1}")
+    p = Packed(ok=False)
+    for name, v in scalars.items():
+        if name not in wire_fields:
+            raise ValueError(f"unknown Packed field {name!r}")
+        setattr(p, name, v)
+    for name, dt, shape, n, at in manifest:
+        setattr(p, name, np.frombuffer(buf, dtype=dt, count=n,
+                                       offset=at).reshape(shape).copy())
+    return p
+
+
 def bucket(n: int) -> int:
     """Pad R to a power-of-two bucket (at least 16)."""
     b = 16
@@ -1639,10 +1733,13 @@ def _graph_waves(wave, running, carry: list, n_waves: int):
     torch.cuda.current_stream().wait_stream(side)
     done = 1
     graph = torch.cuda.CUDAGraph()
-    # thread-local capture: another thread may go on issuing work and
-    # allocating on the card meanwhile (the fused pipeline's generator
-    # runs beside its checker); the capture guards only this thread
-    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+    # one capture at a time in the process (PyTorch's rule), on this
+    # call's own stream, never the capture stream torch.cuda.graph
+    # shares between threads; thread-local, so other threads may go on
+    # issuing work and allocating on the card meanwhile (the fused
+    # pipeline's generator, the service's other lanes)
+    with _CAPTURE_LOCK, torch.cuda.graph(
+            graph, stream=side, capture_error_mode="thread_local"):
         c = static
         for _ in range(GRAPH_WAVES):
             c = wave(c)
@@ -1740,40 +1837,132 @@ def check_packed(p: Packed, f_max: Optional[int] = None,
 
 def group_key(p: Packed) -> tuple:
     """The (R-bucket, info dims, window width) group key: keys sharing
-    it share padded table shapes and ride one batched ladder rung."""
+    it share padded table shapes and ride one batched ladder rung; the
+    checker service places groups on its lanes by it."""
     return (bucket(p.R), info_dims(p), p.w)
 
 
+class PreparedGroup(Mapping):
+    """The host half of one batched-rung dispatch: a same-``group_key``
+    key group's tables, padded to the group's shapes and stacked on the
+    key axis (``stacked``: table name -> [k_pad, ...] numpy array), with
+    each row's R and I. The key axis pads to a power of two per lane
+    times ``lanes`` (1 for one device, the lane count when the rung is
+    split over lanes); padding rows have R = 0 and are never searched.
+    As a mapping it gives each table's rows of the group's ``n`` real
+    keys. The checker service builds tick N+1's groups on its
+    dispatcher thread while tick N's run on their lanes."""
+
+    __slots__ = ("key", "n", "lanes", "k_pad", "stacked", "Rs", "Is")
+
+    def __init__(self, key, n, lanes, k_pad, stacked, Rs, Is):
+        self.key = key
+        self.n = n
+        self.lanes = lanes
+        self.k_pad = k_pad
+        self.stacked = stacked
+        self.Rs = Rs
+        self.Is = Is
+
+    def __getitem__(self, name):
+        return self.stacked[name][:self.n]
+
+    def __iter__(self):
+        return iter(self.stacked)
+
+    def __len__(self):
+        return len(self.stacked)
+
+    def fits(self, packs: list, idxs: list, key: tuple,
+             lanes: int) -> bool:
+        """Whether this group was prepared for exactly these keys."""
+        return (self.n == len(idxs) and self.lanes == lanes
+                and self.key == key
+                and all(packs[i].R == int(self.Rs[j])
+                        for j, i in enumerate(idxs)))
+
+
 def prepare_bucket_group(packs: list, idxs: list, r_pad: int,
-                         info: tuple) -> dict:
-    """Pad a same-``group_key`` key group's tables to the group's
-    ``(r_pad, info)`` shapes and stack them on the host: {table name:
-    [K, ...] numpy array}, key j being ``packs[idxs[j]]``."""
+                         info: tuple, lanes: int = 1) -> PreparedGroup:
+    """Pad and stack a key group's tables on the host, key j being
+    ``packs[idxs[j]]`` (see PreparedGroup)."""
+    K = len(idxs)
+    per_lane = 1
+    while per_lane * lanes < K:
+        per_lane *= 2
+    k_pad = per_lane * lanes
     per_key = [pad_tables(packs[i], r_pad, info) for i in idxs]
-    return {name: np.stack([t[name] for t in per_key])
-            for name in per_key[0]}
+    stacked = {}
+    for name in per_key[0]:
+        first = per_key[0][name]
+        out = np.zeros((k_pad,) + first.shape, dtype=first.dtype)
+        for j, t in enumerate(per_key):
+            out[j] = t[name]
+        stacked[name] = out
+    Rs = np.zeros(k_pad, dtype=np.int32)  # padding keys: R = 0
+    Is = np.zeros(k_pad, dtype=np.int32)
+    for j, i in enumerate(idxs):
+        Rs[j] = packs[i].R
+        Is[j] = packs[i].I
+    return PreparedGroup((r_pad, info, packs[idxs[0]].w), K, lanes,
+                         k_pad, stacked, Rs, Is)
+
+
+def _b1_first(device) -> bool:
+    """Whether ``check_packed_batch`` runs the wave kernel before the
+    ladder: when its lanes (``device``, or every lane of
+    ``wgl_mxu.batch_lanes``) are CUDA devices, as the reference's
+    ``_run_fused`` runs it on its TPU; on the CPU the batch stays on the
+    ladder, as the reference's does there."""
+    from . import wgl_mxu
+    return all(d.type == "cuda" for d in wgl_mxu.batch_lanes(device))
 
 
 def check_packed_batch(packs: list, f_max: Optional[int] = None,
-                       device=None) -> list:
-    """Check K per-key packed histories on the ladder, one result dict
-    per pack in input order: the keys the wave kernel cannot take or
-    whose kernel search overflowed (``TPULinearizableChecker.check_batch``
-    launches the kernel for the others itself).
+                       try_fused: bool = True, device=None,
+                       shard: bool = False, prepared=None,
+                       device_for=None) -> list:
+    """Check K per-key packed histories, one result dict per pack in
+    input order.
 
-    The keys group by ``group_key``: a lone key climbs the ladder
-    through ``check_packed``; a group of several runs the batched rung
-    at the group's fixed capacity (128 unless ``f_max`` is given) on
-    tables padded to the group's shapes, each key's waves until it
-    finishes — the reference's vmapped ``_wgl_kernel``, whose finished
-    keys are masked, gives the same per-key dicts, labelled ``batched:
-    True``. A key that overflows the batched rung climbs from F_MAX.
-    Spill is deferred (``{"overflow": True, "_resume": ...}``) so the
-    checker can interpose its DFS."""
-    dev = resolve_device(device)
+    With ``f_max`` None and ``try_fused``, on the card the wave kernel
+    takes every key it can first (``wgl_mxu.check_packed_batch_mxu``:
+    one launch per lane per (R-bucket, width) group); the keys it cannot
+    take or whose frontier overflowed go on to the ladder. A kernel
+    failure raises. ``try_fused=False`` means the caller already ran the
+    kernel (``TPULinearizableChecker.check_batch``) and these packs are
+    its leftovers.
+
+    The ladder keys group by ``group_key``: a lone key climbs the
+    ladder through ``check_packed`` (from rung 32; the kernel is not
+    retried); a group of several runs the batched rung at the group's
+    fixed capacity (128 unless ``f_max`` is given), each key's waves
+    until it finishes — the reference's vmapped ``_wgl_kernel``, whose
+    finished keys are masked, gives the same per-key dicts, labelled
+    ``batched: True``. A key that overflows the batched rung climbs from
+    F_MAX. Spill is deferred (``{"overflow": True, "_resume": ...}``)
+    so the checker can interpose its DFS.
+
+    Placement (the checker service's): ``device`` commits every group
+    to one lane; ``device_for`` is a ``group_key -> device`` callback
+    for groups when ``device`` is None; ``shard=True`` splits each
+    group's key axis over every lane of ``wgl_mxu.batch_lanes`` (the
+    reference's ``_batched_kernel_sharded``); ``prepared`` maps group
+    keys to ``PreparedGroup``s built ahead, rebuilt when they do not
+    fit. Otherwise a group runs on ``cuda`` (one device)."""
     results: list = [None] * len(packs)
+    if f_max is None and try_fused and \
+            any(p.ok and p.R > 0 for p in packs) and _b1_first(device):
+        from . import wgl_mxu
+        mxu_out = wgl_mxu.check_packed_batch_mxu(packs, device=device)
+        if mxu_out is not None:
+            for i, out in enumerate(mxu_out):
+                if out is not None and not out.get("overflow"):
+                    results[i] = out
     groups: dict = {}
     for i, p in enumerate(packs):
+        if results[i] is not None:
+            continue
         if not p.ok:
             results[i] = {"valid?": "unknown", "reason": p.reason,
                           "blowup": p.blowup}
@@ -1781,42 +1970,100 @@ def check_packed_batch(packs: list, f_max: Optional[int] = None,
             results[i] = {"valid?": True, "waves": 0}
         else:
             groups.setdefault(group_key(p), []).append(i)
-    for (r_pad, info, w), idxs in groups.items():
-        _check_bucket_group(packs, results, idxs, r_pad, info, w, f_max,
-                            dev)
+    for key, idxs in groups.items():
+        dev = device
+        if dev is None and device_for is not None:
+            dev = device_for(key)
+        prep = None if prepared is None else prepared.get(key)
+        _check_bucket_group(packs, results, idxs, *key, f_max,
+                            device=dev, shard=shard, prepared=prep)
     return results
 
 
 def _check_bucket_group(packs: list, results: list, idxs: list,
                         r_pad: int, info: tuple, w: int,
-                        f_max: Optional[int], dev: torch.device) -> None:
+                        f_max: Optional[int], device=None,
+                        shard: bool = False, prepared=None) -> None:
     """The batched rung for one same-``group_key`` key group; results
-    written in place. The group's stacked tables go to ``dev`` in one
-    copy per table; each key's rung reads its own slice."""
-    if len(idxs) == 1:
+    written in place. With ``shard`` (and no ``device``) the key axis
+    splits evenly over the lanes of ``wgl_mxu.batch_lanes`` and each
+    lane runs its keys on a thread and a CUDA stream of its own (the
+    reference's ``_batched_kernel_sharded``, whose shard_map runs each
+    device's keys apart); otherwise the group runs on ``device``.
+    Either way each key's loop reads its own rows of the group's
+    tables, so the dicts do not depend on the lanes."""
+    if len(idxs) == 1 and not shard:
         # a lone pack rides the rung ladder (early exit beats the
         # fixed-capacity batched rung)
-        results[idxs[0]] = check_packed(packs[idxs[0]], f_max=f_max,
-                                        spill=False, device=dev)
+        results[idxs[0]] = check_packed(
+            packs[idxs[0]], f_max=LADDER[0] if f_max is None else f_max,
+            spill=False, device=device)
         return
     if f_max is None:
         f_max = 128
-    stacked = _tables_to(prepare_bucket_group(packs, idxs, r_pad, info),
-                         dev)
-    for j, i in enumerate(idxs):
-        p = packs[i]
-        valid, overflow, k, peak, _ = _wgl_loop(
-            {name: t[j] for name, t in stacked.items()}, p.R, p.I, f_max,
-            w, (0, *_initial_frontier(f_max, w // 32, info[1], dev)))
-        if overflow:
-            # climb the remaining rungs per key; spill deferred
-            results[i] = check_packed(p, f_max=F_MAX, spill=False,
-                                      device=dev)
-        else:
-            results[i] = {
-                "valid?": valid, "waves": k, "peak-frontier": peak,
-                "ops": p.R, "info-ops": p.I, "batched": True,
-                **({} if valid else {"stuck-at-depth": k})}
+    if shard and device is None:
+        from . import wgl_mxu
+        lanes = wgl_mxu.batch_lanes()
+    else:
+        lanes = [resolve_device(device)]
+    K = len(idxs)
+    if prepared is None or not prepared.fits(packs, idxs,
+                                             (r_pad, info, w), len(lanes)):
+        prepared = prepare_bucket_group(packs, idxs, r_pad, info,
+                                        lanes=len(lanes))
+    per = prepared.k_pad // len(lanes)
+
+    def lane(d: int) -> list:
+        """Lane d's real keys (rows d*per onward), searched in order."""
+        rows = range(d * per, min((d + 1) * per, K))
+        if not rows:
+            return []
+        dev = lanes[d]
+        stacked = _tables_to({name: a[rows.start:rows.stop]
+                              for name, a in prepared.stacked.items()}, dev)
+        out = []
+        for j in rows:
+            p = packs[idxs[j]]
+            valid, overflow, k, peak, _ = _wgl_loop(
+                {name: t[j - rows.start] for name, t in stacked.items()},
+                p.R, p.I, f_max, w,
+                (0, *_initial_frontier(f_max, w // 32, info[1], dev)))
+            if overflow:
+                # climb the remaining rungs per key; spill deferred
+                out.append(check_packed(p, f_max=F_MAX, spill=False,
+                                        device=dev))
+            else:
+                out.append({
+                    "valid?": valid, "waves": k, "peak-frontier": peak,
+                    "ops": p.R, "info-ops": p.I, "batched": True,
+                    **({} if valid else {"stuck-at-depth": k})})
+        return out
+
+    lane_outs = _run_lanes(lanes, lane)
+    if shard and device is None:
+        global SHARDED_LAUNCHES
+        with _sharded_lock:
+            SHARDED_LAUNCHES += sum(1 for outs in lane_outs if outs)
+    for d, outs in enumerate(lane_outs):
+        for j, out in enumerate(outs):
+            results[idxs[d * per + j]] = out
+
+
+def _run_lanes(lanes: list, work) -> list:
+    """``[work(d) for d in range(len(lanes))]``, each lane on a thread
+    and (on the card) a stream of its own; one lane runs on the
+    caller's thread and stream. The first failure raises."""
+    if len(lanes) == 1:
+        return [work(0)]
+    from concurrent.futures import ThreadPoolExecutor
+
+    def on_lane(d: int) -> list:
+        with lane_stream(lanes[d]):
+            return work(d)
+
+    with ThreadPoolExecutor(len(lanes),
+                            thread_name_prefix="wgl-lane") as pool:
+        return list(pool.map(on_lane, range(len(lanes))))
 
 
 def spill_packed(p: Packed, tables, frontier, waves_done: int) -> dict:

@@ -34,6 +34,7 @@ own device and stream, the counterpart of the reference's
 from __future__ import annotations
 
 import contextlib
+import threading
 
 import numpy as np
 import torch
@@ -70,6 +71,14 @@ _M32 = 0xFFFFFFFF
 #: launches of the CUDA wave kernel in this process (the wrapper adds
 #: one per launch; a caller may reset it to 0 to count one run)
 LAUNCHES = 0
+_launch_lock = threading.Lock()
+_launched_here = threading.local()
+
+
+def thread_launches() -> int:
+    """Launches of the CUDA wave kernel made by the calling thread (the
+    checker service's lane workers count their own jobs' launches)."""
+    return getattr(_launched_here, "n", 0)
 
 
 def _dims(wk: int):
@@ -558,7 +567,9 @@ def wave_search(tab: torch.Tensor, scal: torch.Tensor,
     out = torch.empty((tab.shape[0], 4), dtype=torch.int32,
                       device=tab.device)
     _cuda.wgl_wave(tab, scal, out, wk)
-    LAUNCHES += 1
+    with _launch_lock:
+        LAUNCHES += 1
+    _launched_here.n = thread_launches() + 1
     return out
 
 
@@ -618,14 +629,18 @@ def _launch_lane(i32: np.ndarray, u16: np.ndarray, r_pad: int, wk: int,
                  dev: torch.device, stream=None) -> torch.Tensor:
     """One lane's share of a launch: its key-major per-op slabs to
     ``dev``, the frame build, and ONE wave-search launch, all on
-    ``stream`` (the current stream when None). Returns the [k, 4] int32
-    result on ``dev`` without waiting for it."""
+    ``stream`` (the current stream when None), which the caller's
+    current stream then waits on. Returns the [k, 4] int32 result on
+    ``dev`` without waiting for it."""
     with torch.cuda.stream(stream) if stream is not None \
             else contextlib.nullcontext():
         i32_t = torch.from_numpy(np.ascontiguousarray(i32)).to(dev)
         u16_t = torch.from_numpy(u16.astype(np.int32)).to(dev)
         tab, scal = build_tables(i32_t, u16_t, r_pad, wk)
-        return wave_search(tab, scal, wk)
+        out = wave_search(tab, scal, wk)
+    if stream is not None:
+        torch.cuda.current_stream(dev).wait_stream(stream)
+    return out
 
 
 def launch_packed_batch_mxu(packs: list, device=None) -> list:
@@ -660,12 +675,11 @@ def launch_packed_batch_mxu(packs: list, device=None) -> list:
 
 
 def readback(launched: list) -> list:
-    """Wait for every launch record's lanes (one synchronization per
-    device) and return (index_chunk, [k_pad, 4] numpy, pack_chunk)
-    records, the lanes' outputs concatenated in key order."""
-    for d in {o.device for _, outs, _ in launched for o in outs
-              if o.device.type == "cuda"}:
-        torch.cuda.synchronize(d)
+    """Wait for every launch record's lanes and return (index_chunk,
+    [k_pad, 4] numpy, pack_chunk) records, the lanes' outputs
+    concatenated in key order. The copies wait on the calling thread's
+    streams, which the lanes' streams feed (``_launch_lane``), never on
+    the whole device: another thread may be capturing a CUDA graph."""
     return [(chunk, torch.cat([o.cpu() for o in outs]).numpy(),
              chunk_packs) for chunk, outs, chunk_packs in launched]
 

@@ -34,6 +34,8 @@ PORT_MODULES = [
     "jepsen_etcd_tpu_torch.runner",
     "jepsen_etcd_tpu_torch.runner.telemetry",
     "jepsen_etcd_tpu_torch.runner.stream",
+    "jepsen_etcd_tpu_torch.runner.transport",
+    "jepsen_etcd_tpu_torch.runner.checker_service",
     "jepsen_etcd_tpu_torch.simbatch",
     "jepsen_etcd_tpu_torch.simbatch.heap",
     "jepsen_etcd_tpu_torch.simbatch.engine",
