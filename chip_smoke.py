@@ -38,7 +38,14 @@ simulated register runs, each checked by the register workload's checker
 on a thread of its own through one service on a unix socket, held
 against the same runs checked in-process; the same packs over two lanes
 of the card, placed and sharded; wgl_wave at a tick's shape and the
-sharded batched rung, timed. Prints the card's name and power limit, a
+sharded batched rung, timed. Last the ``test`` command on the
+simulated cluster (``runner_phase``): the BASELINE register
+configuration through ``cli.main`` (every key through wgl_wave's
+batched launch, each verdict equal to the native DFS), stale reads
+caught on the native DFS's keys, the watch workload through
+indel_bits (its dict equal to the plain versions' on the CPU) and
+list-append through the closure on the card (held against scipy's
+strongly connected components). Prints the card's name and power limit, a
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
 Exits non-zero, with no result line, when CUDA is unavailable or any
 phase fails. Imports nothing of JAX or of the JAX package.
@@ -178,6 +185,26 @@ SVC_LONG_SEEDS, SVC_RUNG_KEYS, SVC_TICK_S = 4, 4, 0.05
 #: and a xor; 5 key injections of three adds and two masks; the initial
 #: two adds and masks; the counter's split and concatenation
 THREEFRY_OPS_PER_PAIR = 20 * 7 + 5 * 5 + 4 + 4
+#: the runner phase: the ``test`` entry point on the simulated cluster.
+#: (a) the BASELINE deep configuration, "register --concurrency 4n
+#: --ops-per-key 2000" (BASELINE.md), run for 110 virtual seconds so
+#: that 12 keys of ~3,700 entries pass CPU_CUTOFF and ride the wave
+#: kernel's batched launch; (b) the e2e suite's stale-read test
+#: (tests/test_e2e.py:10-28: serializable reads, rate 100, 8 s) with
+#: force_kernel; (c) the reference's watch cell (bench.py:674-689: 60 s
+#: at 200 writes/s, ~11,800 values a watcher's log); (d) list-append
+#: for 10 s at 200 txns/s, ~1,500 committed txns, past the closure's
+#: CPU_CUTOFF of 768
+RUNNER_ARGV = ["test", "-w", "register", "-c", "4n", "--ops-per-key",
+               "2000", "--time-limit", "110", "--seed", "0"]
+RUNNER_MIN_KEYS = 9
+RUNNER_STALE = {"workload": "register", "serializable": True, "rate": 100,
+                "time_limit": 8, "ops_per_key": 30, "seed": 7,
+                "force_kernel": True}
+RUNNER_WATCH = {"workload": "watch", "time_limit": 60, "rate": 200,
+                "seed": 0}
+RUNNER_APPEND = {"workload": "append", "time_limit": 10, "rate": 200,
+                 "seed": 0}
 
 
 def fail(msg: str) -> None:
@@ -1916,6 +1943,217 @@ def service_phase(card: str, dev) -> list:
              else "operations", "library_ms": None}]
 
 
+def runner_phase(card: str, dev) -> dict:
+    """The ``test`` entry point on the card: (a) the BASELINE register
+    configuration through ``cli.main`` (the kernel's launches counted,
+    every key's verdict held against the native DFS, wgl_wave at the
+    run's batch held against its plain version and timed), (b) stale
+    reads through ``run_test(etcd_test(...))`` with force_kernel, (c)
+    the watch workload (indel_bits launched, the dict equal to the plain
+    versions' on the CPU) and (d) list-append (a ``closure.device``
+    span, on_cycle held against scipy's strongly connected components).
+    Returns the wave kernel's launches and error for the kernels line."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+    from scipy.sparse.csgraph import connected_components
+    from jepsen_etcd_tpu_torch import cli
+    from jepsen_etcd_tpu_torch.checkers import watch
+    from jepsen_etcd_tpu_torch.checkers.elle import graph
+    from jepsen_etcd_tpu_torch.checkers.linearizable import check_history
+    from jepsen_etcd_tpu_torch.checkers.tpu_linearizable import CPU_CUTOFF
+    from jepsen_etcd_tpu_torch.compose import etcd_test
+    from jepsen_etcd_tpu_torch.models import VersionedRegister
+    from jepsen_etcd_tpu_torch.ops import edit_distance as ed
+    from jepsen_etcd_tpu_torch.ops import wgl, wgl_mxu
+    from jepsen_etcd_tpu_torch.runner.test_runner import run_test
+
+    store = tempfile.mkdtemp(prefix="chip-smoke-runner-")
+    try:
+        # -- (a) the BASELINE configuration through the CLI --------------
+        runs = []
+        run_test_cli = cli.run_test
+
+        def keep(test):
+            out = run_test_cli(test)
+            runs.append((test, out))
+            return out
+        cli.run_test = keep
+        try:
+            torch.cuda.synchronize()
+            wgl_mxu.LAUNCHES = 0
+            t0 = time.perf_counter()
+            rc = cli.main(RUNNER_ARGV + ["--store", store])
+            wall = time.perf_counter() - t0
+            launches = wgl_mxu.LAUNCHES
+        finally:
+            cli.run_test = run_test_cli
+        test, out = runs[0]
+        res = out["results"]
+        lin = {k: r["linear"] for k, r in res["workload"]["results"].items()}
+        subs = out["history"].split_by_key()
+        big = sorted(k for k in subs if len(subs[k]) > CPU_CUTOFF)
+        bad_keys = [k for k in subs
+                    if check_history(VersionedRegister(), subs[k])["valid?"]
+                    is not lin[k]["valid?"]]
+        engines = {}
+        for k in subs:
+            engines.setdefault(str(lin[k].get("engine")), []).append(k)
+        phases = res["telemetry"]["phases"]
+        for f in ("history.jsonl", "results.json", "test.json",
+                  "timeline.html", "n1/etcd.log"):
+            if not os.path.exists(os.path.join(out["dir"], f)):
+                fail(f"the test command wrote no {f}")
+        # wgl_wave at the run's batch: held against its plain version
+        # and timed, one launch per (r_pad, wk) group of the keys it took
+        packs = wgl.pack_register_histories_batched(
+            {k: subs[k] for k in big})
+        groups = {}
+        for k in big:
+            if wgl_mxu.supported(packs[k]):
+                p = packs[k]
+                groups.setdefault((max(wgl.bucket(p.R), wgl_mxu.TSUB), p.w),
+                                  []).append(p)
+        b1_ms, plain_ms, err, waves, bound = 0.0, 0.0, 0, 0, 0.0
+        for gp in groups.values():
+            tab, scal, wk = tables_for(gp, dev,
+                                       wgl_mxu._batch_geometry(len(gp), 1)[0])
+            b1_ms += cuda_ms(lambda: wgl_mxu.wave_search(tab, scal, wk), 11)
+            got = wgl_mxu.wave_search(tab, scal, wk).cpu().numpy()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref = wgl_mxu.wave_search_reference(tab, scal, wk).cpu().numpy()
+            plain_ms += (time.perf_counter() - t0) * 1e3
+            err = max(err, int(np.abs(got.astype(np.int64) - ref).max()))
+            gw = int(ref[:len(gp), 3].sum())
+            waves += gw
+            bound += wgl_bound(gw, (tab.shape[2] + scal.shape[2]) * 4,
+                               len(gp), wk)[0]
+        print(f"runner (a) on {card}: python -m jepsen_etcd_tpu_torch "
+              f"{' '.join(RUNNER_ARGV)}: exit {rc}, valid?={out['valid?']}, "
+              f"{len(out['history'])} ops, {len(subs)} keys ({len(big)} past "
+              f"CPU_CUTOFF = {CPU_CUTOFF}), {out['sim-seconds']:.1f} sim-s, "
+              f"wall {wall:.3f} s (generate {phases['generate']:.3f} s, "
+              f"check {phases['check']:.3f} s); wgl_wave launches "
+              f"{launches}, engines {engines}; every key's verdict = "
+              f"native DFS: {not bad_keys}; wgl_wave at the run's batch "
+              f"({len(groups)} group(s), {waves} waves) {b1_ms:.3f} ms "
+              f"(CUDA events, median of 11), plain {plain_ms:.1f} ms, "
+              f"bound {bound:.4f} ms, max_abs_err {err}; device idle share "
+              f"of the check {1 - b1_ms / 1e3 / phases['check']:.4f} and "
+              f"of the run {1 - b1_ms / 1e3 / wall:.4f} (1 - wgl_wave / "
+              f"wall); the checkers' seconds " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in
+                  res["telemetry"]["checkers"].items())
+              + "; perf plots: " + ("plot-error" if "plot-error" in
+                                    res["perf"] else
+                                    str(res["perf"].get("plots"))),
+              flush=True)
+        if rc != 0 or out["valid?"] is not True:
+            fail(f"runner (a): exit {rc}, valid? {out['valid?']}")
+        if len(big) < RUNNER_MIN_KEYS or launches < 1 or \
+                sorted(engines.get("mxu-wave", [])) != big:
+            fail(f"runner (a): keys past the cutoff {big}, wgl_wave "
+                 f"launches {launches}, engines {engines}")
+        if bad_keys or err:
+            fail(f"runner (a): keys {bad_keys} differ from the native "
+                 f"DFS, max_abs_err {err}")
+
+        # -- (b) stale reads, every key device-bound -----------------------
+        torch.cuda.synchronize()
+        wgl_mxu.LAUNCHES = 0
+        t0 = time.perf_counter()
+        sout = run_test(etcd_test(dict(RUNNER_STALE, store_base=store)))
+        swall = time.perf_counter() - t0
+        stale_launches = wgl_mxu.LAUNCHES
+        slin = {k: r["linear"]
+                for k, r in sout["results"]["workload"]["results"].items()}
+        ssubs = sout["history"].split_by_key()
+        dfs_false = sorted(
+            k for k in ssubs
+            if check_history(VersionedRegister(), ssubs[k])["valid?"]
+            is False)
+        got_false = sorted(k for k in ssubs
+                           if slin[k]["valid?"] is False)
+        print(f"runner (b) on {card}: stale reads, {len(sout['history'])} "
+              f"ops, {len(ssubs)} keys: valid?={sout['valid?']}, failing "
+              f"keys {got_false}, native DFS {dfs_false}; wgl_wave "
+              f"launches {stale_launches}; wall {swall:.3f} s", flush=True)
+        if sout["valid?"] is not False or got_false != dfs_false or \
+                stale_launches < 1:
+            fail("runner (b): stale reads not caught as the native DFS "
+                 "catches them")
+
+        # -- (c) watch -----------------------------------------------------
+        torch.cuda.synchronize()
+        ed.LAUNCHES = 0
+        t0 = time.perf_counter()
+        wtest = etcd_test(dict(RUNNER_WATCH, store_base=store))
+        wout = run_test(wtest)
+        wwall = time.perf_counter() - t0
+        watch_launches = ed.LAUNCHES
+        logs = watch.per_thread_logs(wtest, wout["history"])
+        plain = watch.WatchChecker(device="cpu").check(wtest,
+                                                       wout["history"])
+        wres = wout["results"]["workload"]
+        wph = wout["results"]["telemetry"]["phases"]
+        print(f"runner (c) on {card}: watch, {len(wout['history'])} ops, "
+              f"{wout['sim-seconds']:.1f} sim-s: valid?={wout['valid?']}, "
+              f"{len(logs)} logs of {min(map(len, logs.values()))}-"
+              f"{max(map(len, logs.values()))} values; indel_bits launches "
+              f"{watch_launches}; dict = the plain versions' on the CPU: "
+              f"{wres == plain}; wall {wwall:.3f} s (generate "
+              f"{wph['generate']:.3f} s, check {wph['check']:.3f} s)",
+              flush=True)
+        if wout["valid?"] is not True or watch_launches < 1 or \
+                wres != plain or \
+                min(map(len, logs.values())) < ed.CPU_CUTOFF:
+            fail(f"runner (c): watch {wres}, launches {watch_launches}")
+
+        # -- (d) list-append -----------------------------------------------
+        seen = []
+        levels = graph.closure_levels_lazy
+
+        def capture(et_edges, lvl_mask, n, rt_vecs, densify, **kw):
+            reach_fn, on_cycle = levels(et_edges, lvl_mask, n, rt_vecs,
+                                        densify, **kw)
+            seen.append((densify, on_cycle))
+            return reach_fn, on_cycle
+        graph.closure_levels_lazy = capture
+        try:
+            t0 = time.perf_counter()
+            aout = run_test(etcd_test(dict(RUNNER_APPEND,
+                                           store_base=store)))
+            awall = time.perf_counter() - t0
+        finally:
+            graph.closure_levels_lazy = levels
+        ares = aout["results"]["workload"]
+        spans = aout["results"]["telemetry"]["spans"]
+        scc_bad = 0
+        for densify, on_cycle in seen:
+            adj = densify()
+            for b in range(adj.shape[0]):
+                _, labels = connected_components(
+                    sp.csr_matrix(adj[b]), directed=True,
+                    connection="strong")
+                want = (np.bincount(labels)[labels] >= 2) | adj[b].diagonal()
+                scc_bad += int((want != on_cycle[b]).sum())
+        print(f"runner (d) on {card}: list-append, "
+              f"{len(aout['history'])} ops, {ares.get('committed-count')} "
+              f"committed txns: valid?={aout['valid?']}; closure.device "
+              f"span: {'closure.device' in spans}; {len(seen)} closure(s) "
+              f"held against scipy's SCCs: {scc_bad} nodes differ; wall "
+              f"{awall:.3f} s", flush=True)
+        if aout["valid?"] is not True or "closure.device" not in spans \
+                or not seen or scc_bad:
+            fail(f"runner (d): append {ares}")
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    return {"launches": launches + stale_launches, "max_abs_err": err}
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2304,6 +2542,12 @@ def main() -> None:
 
     # -- 10. the checker service: a campaign through one service --------
     svc_entries = service_phase(card, torch.device("cuda", 0))
+
+    # -- 11. the test entry point on the simulated cluster --------------
+    runner = runner_phase(card, torch.device("cuda", 0))
+    batch_entries[0]["launches"] += runner["launches"]
+    batch_entries[0]["max_abs_err"] = max(batch_entries[0]["max_abs_err"],
+                                          runner["max_abs_err"])
 
     print(json.dumps({"kernels": [{
         "name": "wgl_wave", "route": "cuda",

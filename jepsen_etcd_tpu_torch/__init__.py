@@ -1,10 +1,12 @@
-"""PyTorch/CUDA port of jepsen_etcd_tpu's checkers: register
-linearizability (the wave kernel, the capacity ladder and the spill
-BFS) and the watch checker (the edit-distance wavefront).
+"""PyTorch/CUDA port of jepsen_etcd_tpu: register linearizability (the
+wave kernel, the capacity ladder and the spill BFS), the watch checker
+(the edit-distance wavefront), Elle (the boolean closure), the batched
+simulator, the checker service and the ``test`` command on the
+simulated cluster (``python -m jepsen_etcd_tpu_torch test ...``).
 
 The JAX package ``jepsen_etcd_tpu`` is the reference; this package keeps
 its module layout (``core/``, ``models/``, ``checkers/``, ``ops/``,
-``native/``) so each counterpart sits at the same relative path. It
+``runner/``, ...) so each counterpart sits at the same relative path. It
 imports torch and numpy, never jax, and nothing of the JAX package.
 
 Entry points take an explicit ``device`` and default to ``cuda``: with

@@ -1,10 +1,17 @@
-from .core import Checker, Compose, Stats, compose
+from .core import (Checker, Compose, compose, Stats, UnhandledExceptions,
+                   LogFilePattern, ClockPlot, Noop)
 from .independent import Independent, independent_checker
 from .linearizable import check_history
-from .session import SessionGuarantees
+from .perf import Perf
+from .session import SessionGuarantees, session_guarantees
+from .timeline import TimelineHtml
 from .tpu_linearizable import TPULinearizableChecker
 from .watch import WatchChecker
 
-__all__ = ["Checker", "Compose", "Stats", "compose", "Independent",
-           "independent_checker", "check_history", "SessionGuarantees",
-           "TPULinearizableChecker", "WatchChecker"]
+__all__ = [
+    "Checker", "Compose", "compose", "Stats", "UnhandledExceptions",
+    "LogFilePattern", "ClockPlot", "Noop", "Independent",
+    "independent_checker", "check_history", "Perf", "SessionGuarantees",
+    "session_guarantees", "TimelineHtml", "TPULinearizableChecker",
+    "WatchChecker",
+]

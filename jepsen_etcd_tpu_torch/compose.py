@@ -1,0 +1,182 @@
+"""Test composition: the etcd-test analog (etcd.clj:90-155).
+
+Builds a full test map from CLI-style opts: workload + db + nemesis
+package + the phased generator (main phase at :rate under the nemesis,
+then heal, recover, final client generator) + the composed checker stack.
+
+The port runs the simulated cluster only. ``opts["device"]`` names the
+device the checkers run on: None (the default) is the card, and with no
+card composing the test raises; ``"cpu"`` runs the kernels' plain
+PyTorch versions. Options of the live side and ``stream`` raise
+(``_refuse_later_slices``).
+"""
+
+from __future__ import annotations
+
+from .generators import (phases, stagger, time_limit, nemesis as gen_nemesis,
+                         clients as gen_clients, log as gen_log, sleep_gen)
+from .workloads import workloads
+from .checkers import (compose as compose_checkers, Stats,
+                       UnhandledExceptions, LogFilePattern, ClockPlot,
+                       Perf, TimelineHtml)
+from .db import db as make_db
+from .nemesis import nemesis_package
+from .runner.sim import SECOND
+from .device import resolve_device
+
+DEFAULT_NODES = ["n1", "n2", "n3", "n4", "n5"]
+
+
+def default_opts() -> dict:
+    """CLI defaults mirroring cli-opts (etcd.clj:157-209)."""
+    return {
+        "nodes": list(DEFAULT_NODES),
+        "workload": "register",
+        "nemesis": [],                  # e.g. ["kill", "partition"]
+        "nemesis_interval": 5,          # seconds (etcd.clj:177-180)
+        "rate": 200.0,                  # hz (etcd.clj:190-193)
+        "ops_per_key": 200,             # etcd.clj:182-185
+        "time_limit": 30,               # seconds
+        "concurrency": None,            # default 2n
+        "serializable": False,
+        "lazyfs": False,
+        "client_type": "direct",        # or "etcdctl" (etcd.clj:161-164);
+                                        # http and grpc raise
+        "db_mode": None,                # sim (None); local and live
+                                        # raise (ROADMAP A item 8)
+        "snapshot_count": 100,          # etcd.clj:197-200
+        "unsafe_no_fsync": False,       # etcd.clj:204 (opt-in, like etcd)
+        "corrupt_check": False,         # etcd.clj:164
+        "seed": 0,
+        "device": None,                 # the checkers' device: None =
+                                        # the card (device.resolve_device
+                                        # raises when there is none);
+                                        # "cpu" runs the kernels' plain
+                                        # PyTorch versions
+        "debug": False,
+        "no_telemetry": False,          # every run writes telemetry.jsonl
+                                        # unless opted out (--no-telemetry)
+        "version": "sim-3.5.6",         # etcd.clj:206-207 (pinned: the sim
+                                        # has exactly one "binary")
+        "checker_service": None,        # AF_UNIX socket path or
+                                        # tcp://HOST:PORT endpoint of a
+                                        # campaign checker service
+                                        # (runner/checker_service.py);
+                                        # None = check in-process. Env
+                                        # JEPSEN_ETCD_TPU_CHECKER_SERVICE
+                                        # is the fallback source.
+        "checker_service_token": None,  # shared-secret auth token for
+                                        # a TCP checker service (env
+                                        # JEPSEN_ETCD_TPU_SERVICE_TOKEN
+                                        # is the fallback source)
+        "host_id": None,                # this run's generator-host
+                                        # name: stamps the JET-HOST
+                                        # preamble + the service's
+                                        # service.host_submitted.*
+                                        # ledger (campaign --hosts
+                                        # sets it per agent; env
+                                        # JEPSEN_ETCD_TPU_HOST is the
+                                        # fallback source)
+        "force_kernel": False,          # disable the native-DFS size
+                                        # cutoff so every key is
+                                        # device-bound (campaign
+                                        # coalescing tests/bench on CPU;
+                                        # production leaves the measured
+                                        # routing alone)
+    }
+
+
+def _refuse_later_slices(o: dict) -> None:
+    """Options whose machinery the port does not have yet raise, naming
+    the ROADMAP item that brings it; they never quietly run something
+    else."""
+    if o.get("client_type") in ("http", "grpc"):
+        raise ValueError(
+            f"--client-type {o['client_type']} drives real etcd; the "
+            "port's live side is not there yet (ROADMAP A item 8). Use "
+            "direct or etcdctl against the simulated cluster")
+    if o.get("db_mode") not in (None, "sim"):
+        raise ValueError(
+            f"--db {o['db_mode']} drives real etcd processes; the "
+            "port's live side is not there yet (ROADMAP A item 8)")
+    if o.get("soak"):
+        raise ValueError(
+            "soak mode checks a long-lived live cluster; the port's "
+            "live side is not there yet (ROADMAP A item 8)")
+    if o.get("stream"):
+        raise ValueError(
+            "--stream needs StreamFeed and set_full.ColumnScan, which "
+            "the port does not have yet (ROADMAP A items 4 and 6)")
+
+
+def etcd_test(opts: dict) -> dict:
+    """Compose opts into a runnable test map (etcd-test, etcd.clj:90-155)."""
+    o = default_opts()
+    o.update(opts or {})
+    n = len(o["nodes"])
+    if not o.get("concurrency"):
+        o["concurrency"] = 2 * n
+    _refuse_later_slices(o)
+    # the card unless the caller names another device; raises here,
+    # before anything runs, when there is none
+    resolve_device(o["device"])
+    wl_fn = workloads()[o["workload"]]
+    workload = wl_fn(o)
+    o["db_mode"] = "sim"
+    o["db"] = make_db(o)
+    nem = nemesis_package(o)
+
+    rate_gap = int(SECOND / o["rate"]) if o["rate"] else 0
+    main_gen = workload["generator"]
+    if rate_gap:
+        main_gen = stagger(rate_gap, main_gen)
+    main_phase = time_limit(
+        int(o["time_limit"] * SECOND),
+        gen_nemesis(
+            phases(sleep_gen(5 * SECOND), nem.get("generator")),
+            main_gen))
+
+    phase_list: list = [main_phase]
+    if nem.get("generator") is not None or \
+            nem.get("final_generator") is not None:
+        # heal + 10 s recovery window only when faults actually ran:
+        # free in virtual time, but a live run pays it in real seconds
+        phase_list.append(gen_log("Healing cluster"))
+        if nem.get("final_generator") is not None:
+            phase_list.append(gen_nemesis(nem["final_generator"]))
+        phase_list.append(gen_log("Waiting for recovery"))
+        phase_list.append(sleep_gen(10 * SECOND))
+    if workload.get("final_generator") is not None:
+        phase_list.append(gen_clients(workload["final_generator"]))
+
+    checker = compose_checkers({
+        "perf": Perf(nemesis_perf=nem.get("perf", [])),
+        # top level, not per workload: the full history (nemesis ops
+        # included) renders the positioned timeline with fault bands;
+        # a per-key subhistory would lose both
+        "timeline": TimelineHtml(nemesis_perf=nem.get("perf", [])),
+        "clock": ClockPlot(),
+        "stats": Stats(),
+        "exceptions": UnhandledExceptions(),
+        "crash": LogFilePattern(),
+        "workload": workload["checker"],
+    })
+
+    name = "etcd " + " ".join(
+        [o["workload"]] +
+        (["sz"] if o["serializable"] else []) +
+        (sorted(o["nemesis"]) if o["nemesis"] else []))
+    test = dict(o)
+    test.update({
+        "name": name.replace(" ", "-"),
+        # the fault-name list survives here: test["nemesis"] below is
+        # the live nemesis OBJECT, which save_run excludes from
+        # test.json — the spec is what run reports need
+        "nemesis_spec": list(o["nemesis"]),
+        "client": workload["client"],
+        "generator": phases(*[p for p in phase_list if p is not None]),
+        "checker": checker,
+        "nemesis": nem.get("nemesis"),
+        "nemesis_package": nem,
+    })
+    return test

@@ -5,7 +5,9 @@ Mirrors jepsen.history semantics: a history is a vector of ops ordered by
 real (here: virtual) time; each client process is sequential, so an
 ``invoke`` by process p pairs with the next completion (``ok``/``fail``/
 ``info``) by p.  Crashed ops surface as ``info`` completions; processes are
-then retired and replaced with ``process + concurrency`` by the interpreter.
+then retired and replaced with ``process + concurrency`` by the interpreter
+(thread recovery via ``(mod process concurrency)``, cf. reference
+``watch.clj:281-282``).
 
 A ``History`` is backed by a dict op list, by SoA columns
 (``OpColumns``, ``from_columns``) or both; the keyed register check splits
@@ -71,8 +73,9 @@ class OpColumns:
     numpy arrays; payloads stay as an aligned Python list (``values``),
     and rare non-core keys (error, debug, ...) ride in a sparse
     ``extras`` dict keyed by row. Checkers consume the arrays directly
-    — ops/wgl.py's batched packer, checkers/session.py — so the per-op
-    dict round-trip disappears from those paths; dict materialization
+    — ops/wgl.py's batched packer, checkers/session.py,
+    checkers/perf.py, checkers/timeline.py — so the per-op dict
+    round-trip disappears from those paths; dict materialization
     is lazy (``History.ops``) and counted
     (``History.dict_materializations``).
 
@@ -451,11 +454,20 @@ class History:
     def filter(self, pred: Callable[[Op], bool]) -> "History":
         return History([o for o in self.ops if pred(o)])
 
+    def nemesis_ops(self) -> "History":
+        return self.filter(lambda o: not isinstance(o.get("process"), int))
+
     def client_ops(self) -> "History":
         return self.filter(lambda o: isinstance(o.get("process"), int))
 
     def oks(self) -> "History":
         return self.filter(lambda o: o.get("type") == "ok")
+
+    def invokes(self) -> "History":
+        return self.filter(lambda o: o.get("type") == "invoke")
+
+    def remove_f(self, fs: set) -> "History":
+        return self.filter(lambda o: o.get("f") not in fs)
 
     # -- (de)serialization ---------------------------------------------------
     def to_jsonl(self) -> str:

@@ -1,7 +1,18 @@
-"""Run-level services of the port: ``telemetry`` (the reference's
-``runner/telemetry.py``, unchanged), ``stream`` (the fused gen->check
-pipeline), ``transport`` (the framed sockets, a copy of the
-reference's) and ``checker_service`` (one process checking every run's
-packed histories on the card). The simulator, interpreter and campaign
-runner that the reference's ``runner/`` also holds are not ported
-yet."""
+"""Run-level machinery of the port: ``sim`` (the virtual-time
+coroutine kernel), ``interpreter`` and ``test_runner`` (the ``test``
+entry point on the simulated cluster), ``store`` / ``store_index`` /
+``trace`` (run artifacts), ``telemetry`` (the reference's file,
+unchanged), ``stream`` (the fused gen->check pipeline), ``transport``
+(the framed sockets) and ``checker_service`` (one process checking
+every run's packed histories on the card). The campaign runner is not
+ported yet (ROADMAP A)."""
+
+from .sim import (
+    SimLoop, Task, Future, Event, Queue, sleep, current_loop, Cancelled,
+    wait_for, gather,
+)
+
+__all__ = [
+    "SimLoop", "Task", "Future", "Event", "Queue", "sleep", "current_loop",
+    "Cancelled", "wait_for", "gather",
+]

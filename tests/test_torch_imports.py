@@ -31,7 +31,15 @@ PORT_MODULES = [
     "jepsen_etcd_tpu_torch.checkers.elle.graph",
     "jepsen_etcd_tpu_torch.checkers.elle.append",
     "jepsen_etcd_tpu_torch.checkers.elle.wr",
+    "jepsen_etcd_tpu_torch.checkers.perf",
+    "jepsen_etcd_tpu_torch.checkers.timeline",
     "jepsen_etcd_tpu_torch.runner",
+    "jepsen_etcd_tpu_torch.runner.sim",
+    "jepsen_etcd_tpu_torch.runner.interpreter",
+    "jepsen_etcd_tpu_torch.runner.test_runner",
+    "jepsen_etcd_tpu_torch.runner.store",
+    "jepsen_etcd_tpu_torch.runner.store_index",
+    "jepsen_etcd_tpu_torch.runner.trace",
     "jepsen_etcd_tpu_torch.runner.telemetry",
     "jepsen_etcd_tpu_torch.runner.stream",
     "jepsen_etcd_tpu_torch.runner.transport",
@@ -42,7 +50,35 @@ PORT_MODULES = [
     "jepsen_etcd_tpu_torch.simbatch.threefry",
     "jepsen_etcd_tpu_torch.simbatch.engine_v3",
     "jepsen_etcd_tpu_torch.generators",
+    "jepsen_etcd_tpu_torch.generators.core",
+    "jepsen_etcd_tpu_torch.generators.elle",
     "jepsen_etcd_tpu_torch.generators.independent",
+    "jepsen_etcd_tpu_torch.sut",
+    "jepsen_etcd_tpu_torch.sut.errors",
+    "jepsen_etcd_tpu_torch.sut.store",
+    "jepsen_etcd_tpu_torch.sut.wal",
+    "jepsen_etcd_tpu_torch.sut.cluster",
+    "jepsen_etcd_tpu_torch.client",
+    "jepsen_etcd_tpu_torch.client.txn",
+    "jepsen_etcd_tpu_torch.client.errors",
+    "jepsen_etcd_tpu_torch.client.base",
+    "jepsen_etcd_tpu_torch.client.direct",
+    "jepsen_etcd_tpu_torch.client.etcdctl",
+    "jepsen_etcd_tpu_torch.nemesis",
+    "jepsen_etcd_tpu_torch.nemesis.packages",
+    "jepsen_etcd_tpu_torch.nemesis.faults",
+    "jepsen_etcd_tpu_torch.db",
+    "jepsen_etcd_tpu_torch.db.etcd",
+    "jepsen_etcd_tpu_torch.workloads",
+    "jepsen_etcd_tpu_torch.workloads.base",
+    "jepsen_etcd_tpu_torch.workloads.debug",
+    "jepsen_etcd_tpu_torch.workloads.register",
+    "jepsen_etcd_tpu_torch.workloads.none",
+    "jepsen_etcd_tpu_torch.workloads.watch",
+    "jepsen_etcd_tpu_torch.workloads.append",
+    "jepsen_etcd_tpu_torch.workloads.wr",
+    "jepsen_etcd_tpu_torch.compose",
+    "jepsen_etcd_tpu_torch.cli",
     "jepsen_etcd_tpu_torch.ops",
     "jepsen_etcd_tpu_torch.ops.common",
     "jepsen_etcd_tpu_torch.ops.closure",
