@@ -45,7 +45,19 @@ batched launch, each verdict equal to the native DFS), stale reads
 caught on the native DFS's keys, the watch workload through
 indel_bits (its dict equal to the plain versions' on the CPU) and
 list-append through the closure on the card (held against scipy's
-strongly connected components). Prints the card's name and power limit, a
+strongly connected components). Last the campaign runner
+(``campaign_phase``): the reference's campaign-amortization cell serial,
+over a pool of spawned workers and over the pool with one checker
+service on the card (verdicts held against in-process re-checks, the
+service's ledger balanced, the CUDA contexts each arm opens sampled
+from nvidia-smi), the same runs over two worker-agent processes on
+loopback TCP (the cross-host ledger), an epoch-v3 campaign generated on
+the card (histories held against ``generate_for_opts``), and guided
+search, shrink and ``replay`` on the card (held against the same search
+on the CPU). The frame tables (``build_tables``, held against the host
+packer) and the unsharded ladder rung (CUDA graphs held against the
+same ops issued one by one) are timed at the register and
+ladder-at-real-size cells. Prints the card's name and power limit, a
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
 Exits non-zero, with no result line, when CUDA is unavailable or any
 phase fails. Imports nothing of JAX or of the JAX package.
@@ -111,8 +123,9 @@ LADDER_SEED = 40
 KEYED_KEYS, KEYED_OPS, KEYED_PROCS, KEYED_SEED = 32, 2_000, 10, 2026
 KEYED_FAULTED, KEYED_INFO_RATE, KEYED_CORRUPTED = (3, 11, 19, 27), 0.01, (7,)
 #: repetitions of the whole keyed check for its median (5 since the
-#: service phase joined the script: each takes ~6 s)
-KEYED_RUNS = 5
+#: service phase joined the script, 3 since the campaign phase did:
+#: each takes ~6 s)
+KEYED_RUNS = 3
 #: the Elle cells. The closure at the reference bench's shape: six
 #: 2,048-node planes drawn with RandomState(0) at density 2/N
 #: (bench.py:619-623, "the append checker's shape at ~30 min of
@@ -205,6 +218,32 @@ RUNNER_WATCH = {"workload": "watch", "time_limit": 60, "rate": 200,
                 "seed": 0}
 RUNNER_APPEND = {"workload": "append", "time_limit": 10, "rate": 200,
                  "seed": 0}
+#: the campaign phase. (a) the reference's campaign-amortization cell
+#: (bench.py:937-1010): 12 forced-kernel register runs at epoch-v1,
+#: serial, over a pool of 4 spawned workers, and over the pool with one
+#: checker service on the card; (b) the same specs over two worker-agent
+#: processes on loopback TCP; (c) an epoch-v3 campaign at the service
+#: cell's generation opts (16 seeds, 4 keys of 13,496 entries a run);
+#: (d) the reference's guided search against the seeded stale-read bug
+#: (tests/test_guided.py:321-366), its shrink and replay
+CAMPAIGN_BASE = {"time_limit": 3, "rate": 100.0, "force_kernel": True,
+                 "nodes": ["n1", "n2", "n3"], "snapshot_count": 100_000}
+CAMPAIGN_POOL, CAMPAIGN_HOSTS = 4, 2
+GUIDED_BASE = {"workload": "register", "nodes": ["n1", "n2", "n3"],
+               "concurrency": 6, "rate": 100.0, "time_limit": 1.0,
+               "inject_stale_reads": True, "gen_epoch": "epoch-v2"}
+GUIDED_CELLS = [["kill"], ["pause"], ["latency"], ["member"],
+                ["partition"]]
+#: the verdict fields a service-checked run and an in-process re-check
+#: share (tests/test_campaign.py:252-261)
+PROJECTION = ("valid?", "waves", "peak-frontier", "ops", "info-ops",
+              "op", "error", "stuck-at-depth")
+#: the frame tables' work a (key, row, window slot), counted from
+#: build_tables: nine column gathers with their range tests and
+#: encodings (~3 operations each) and, against each of the wk window
+#: ops, the predecessor bit (a compare, an and, a shift, an or)
+FRAME_OPS_PER_SLOT = 27
+FRAME_OPS_PER_PAIR = 4
 
 
 def fail(msg: str) -> None:
@@ -2154,6 +2193,428 @@ def runner_phase(card: str, dev) -> dict:
     return {"launches": launches + stale_launches, "max_abs_err": err}
 
 
+class ComputeApps:
+    """Samples ``nvidia-smi --query-compute-apps`` on a thread: the CUDA
+    contexts open on the card while a block runs, one row each (a
+    container may show every process under one pid, so rows are counted,
+    not pids). ``peak`` is the sample with the most rows, as MiB."""
+
+    def __init__(self, every_s: float = 0.25):
+        import threading
+        self.every_s = every_s
+        self.peak: list = []
+        self.pids: set = set()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def sample(self) -> list:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+             "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, timeout=30).stdout
+        rows = []
+        for line in out.splitlines():
+            parts = [x.strip() for x in line.split(",")]
+            if len(parts) == 2 and parts[0].isdigit():
+                rows.append((int(parts[0]), parts[1]))
+        return rows
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            rows = self.sample()
+            self.pids |= {pid for pid, _ in rows}
+            if len(rows) > len(self.peak):
+                self.peak = rows
+            self._stop.wait(self.every_s)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=60)
+
+    def text(self) -> str:
+        return (f"{len(self.peak)} context(s) at peak, MiB "
+                f"{[mib for _, mib in self.peak]}, pids seen "
+                f"{sorted(self.pids)} (this process {os.getpid()})")
+
+
+def projected(results: dict) -> dict:
+    return {str(k): {f: (v.get("linear") or {}).get(f) for f in PROJECTION}
+            for k, v in results["workload"]["results"].items()}
+
+
+def recheck(run_dir: str, history=None) -> dict:
+    """The run's own register checker, in-process on the card, over its
+    stored history (or ``history``, one whose bytes were held equal to
+    the stored ones): the projection of every key's verdict."""
+    from jepsen_etcd_tpu_torch.core.history import History
+    from jepsen_etcd_tpu_torch.workloads.register import workload
+    with open(os.path.join(run_dir, "test.json")) as f:
+        test = json.load(f)
+    test.pop("checker_service", None)
+    if history is None:
+        with open(os.path.join(run_dir, "history.jsonl")) as f:
+            history = History.from_jsonl(f.read())
+    return projected({"workload": workload(test)["checker"].check(
+        test, history)})
+
+
+def stored(run_dir: str) -> dict:
+    with open(os.path.join(run_dir, "results.json")) as f:
+        return projected(json.load(f))
+
+
+def guided_view(out: dict) -> dict:
+    """A guided summary without its timing, paths and device."""
+    def no_dev(x):
+        if isinstance(x, dict):
+            return {k: no_dev(v) for k, v in x.items() if k != "device"}
+        if isinstance(x, list):
+            return [no_dev(v) for v in x]
+        return x
+    view = {k: no_dev(v) for k, v in out.items()
+            if k not in ("dir", "wall_s", "telemetry", "ledger",
+                         "minimized", "name")}
+    view["ledger"] = [{k: v for k, v in r.items() if k != "dir"}
+                      for r in out["ledger"]]
+    view["minimized"] = [{k: v for k, v in m.items()
+                          if k not in ("dir", "repro")}
+                         for m in out["minimized"]]
+    return view
+
+
+def campaign_phase(card: str, dev) -> dict:
+    """The campaign runner on the card (``runner/campaign.py``, ``guided``,
+    ``shrink``, ``host_agent``): (a) the reference's amortization cell in
+    three arms, the service arm's verdicts held against in-process
+    re-checks on the card and its ledger balanced, the CUDA contexts each
+    arm opens sampled; (b) the same specs over two worker-agent
+    processes, the cross-host ledger balanced; (c) an epoch-v3 campaign,
+    its histories held against ``generate_for_opts`` on the card and its
+    verdicts against in-process checks; (d) guided search, shrink and
+    ``replay`` on the card, the summary held against the same search on
+    the CPU. Returns the launches of wgl_wave, the drain and the draws
+    made in-process for the kernels line."""
+    import shutil
+    import tempfile
+    import torch
+    import hashlib
+    from jepsen_etcd_tpu_torch import cli
+    from jepsen_etcd_tpu_torch.ops import wgl_mxu
+    from jepsen_etcd_tpu_torch.runner.campaign import (campaign_specs,
+                                                       run_campaign)
+    from jepsen_etcd_tpu_torch.runner.guided import run_guided
+    from jepsen_etcd_tpu_torch.simbatch import (engine_v3,
+                                                generate_for_opts,
+                                                history_sha)
+
+    store = tempfile.mkdtemp(prefix="cs-")
+    launches = {"wgl_wave": 0, "drain": 0, "draws": 0}
+    try:
+        # -- (a) serial, pooled, pooled with the service -----------------
+        arms = {}
+        for name, pool, service in (("serial", 0, False),
+                                    ("pooled", CAMPAIGN_POOL, False),
+                                    ("service", CAMPAIGN_POOL, True)):
+            specs = campaign_specs(CAMPAIGN_BASE, ["register"],
+                                   [[], ["kill"]], runs_per_cell=6,
+                                   seed0=31)
+            torch.cuda.synchronize()
+            wgl_mxu.LAUNCHES = 0
+            with ComputeApps() as apps:
+                t0 = time.perf_counter()
+                out = run_campaign(specs, pool=pool, service=service,
+                                   store_base=store, name=name)
+                wall = time.perf_counter() - t0
+            arms[name] = (out, wall, wgl_mxu.LAUNCHES, apps)
+            if not out["valid?"]:
+                fail(f"campaign (a) {name}: {out['failures']}")
+        serial, svc = arms["serial"][0], arms["service"][0]
+        valids = {n: [r["valid"] for r in a[0]["runs"]]
+                  for n, a in arms.items()}
+        sctr = svc["service"]["counters"]
+        svc_disp = int(sctr.get("wgl.dispatches", 0)
+                       + sctr.get("mxu.dispatches", 0))
+        local = {n: sum(r.get("dispatches", 0) for r in a[0]["runs"])
+                 for n, a in arms.items()}
+        shipped = sum(r["service_shipped"] for r in svc["runs"])
+        bad = [r["index"] for r in svc["runs"]
+               if stored(r["dir"]) != recheck(r["dir"])]
+        svc_launches = int(sctr.get("service.wgl_wave_launches", 0))
+        launches["wgl_wave"] += arms["serial"][2] + arms["service"][2]
+        for n, (out, wall, n_launch, apps) in arms.items():
+            print(f"campaign (a) {n} on {card}: {out['count']} runs, wall "
+                  f"{wall:.3f} s (campaign.json {out['wall_s']} s), "
+                  f"dispatches in the runs {local[n]}, wgl_wave launches "
+                  f"in this process {n_launch}; CUDA contexts: "
+                  f"{apps.text()}", flush=True)
+        print(f"campaign (a) service ledger on {card}: submitted "
+              f"{sctr.get('service.submitted')}, coalesced "
+              f"{sctr.get('service.coalesced')}, ticks "
+              f"{sctr.get('service.ticks')}, group_ticks "
+              f"{sctr.get('service.group_ticks')}, batch_occupancy "
+              f"{sctr.get('service.batch_occupancy')}, fallback "
+              f"{sctr.get('service.fallback', 0)}; rows shipped {shipped}; "
+              f"service dispatches {svc_disp} (+{local['service']} in the "
+              f"runs), wgl_wave launches {svc_launches}; dispatch "
+              f"amortization {local['serial'] / max(1, svc_disp + local['service']):.2f} "
+              f"(serial dispatches / service's); verdicts = in-process "
+              f"re-checks on the card: {not bad}; valid lists equal: "
+              f"{valids['serial'] == valids['pooled'] == valids['service']}",
+              flush=True)
+        if not valids["serial"] == valids["pooled"] == valids["service"]:
+            fail(f"campaign (a): valid lists differ {valids}")
+        if bad or sctr.get("service.fallback") or \
+                shipped != sctr.get("service.submitted") or \
+                svc_disp > sctr.get("service.group_ticks", 0) or \
+                svc_launches < 1:
+            fail(f"campaign (a): runs {bad} differ from re-checks, or the "
+                 f"ledger does not balance: {sctr}")
+
+        # -- (b) two worker-agent processes over loopback TCP -----------
+        specs = campaign_specs(CAMPAIGN_BASE, ["register"], [[], ["kill"]],
+                               runs_per_cell=6, seed0=31)
+        wgl_mxu.LAUNCHES = 0
+        with ComputeApps() as apps:
+            t0 = time.perf_counter()
+            hout = run_campaign(specs, pool=0, service=True,
+                                hosts=CAMPAIGN_HOSTS, store_base=store,
+                                name="hosts")
+            hwall = time.perf_counter() - t0
+        launches["wgl_wave"] += wgl_mxu.LAUNCHES
+        hctr = hout["service"]["counters"]
+        hosts = hout["hosts"] or {}
+        per_host = {h: (st["shipped"],
+                        hctr.get("service.host_submitted." + h))
+                    for h, st in hosts.items()}
+        hvalid = [r["valid"] for r in hout["runs"]]
+        hbad = [r["index"] for r in hout["runs"]
+                if stored(r["dir"]) != stored(
+                    svc["runs"][r["index"]]["dir"])]
+        print(f"campaign (b) on {card}: {CAMPAIGN_HOSTS} worker agents, "
+              f"{hout['count']} runs, wall {hwall:.3f} s; per host (rows "
+              f"shipped, service.host_submitted) {per_host}; submitted "
+              f"{hctr.get('service.submitted')}, group_ticks "
+              f"{hctr.get('service.group_ticks')}, requeues "
+              f"{hout['agent_requeues']}; verdicts = arm (a)'s: "
+              f"{not hbad and hvalid == valids['service']}; CUDA "
+              f"contexts: {apps.text()}", flush=True)
+        if not hout["valid?"] or len(hosts) != CAMPAIGN_HOSTS or \
+                any(a != b for a, b in per_host.values()) or hbad or \
+                hvalid != valids["service"]:
+            fail(f"campaign (b): ledger {per_host}, runs {hbad}")
+
+        # -- (c) an epoch-v3 campaign through the service ----------------
+        v3 = dict(GEN_OPTS, time_limit=SVC_TIME_LIMIT, gen_epoch="epoch-v3")
+        specs = campaign_specs(v3, ["register"], [[]],
+                               runs_per_cell=SVC_SEEDS, seed0=0)
+        torch.cuda.synchronize()
+        wgl_mxu.LAUNCHES = 0
+        engine_v3.LAUNCHES = engine_v3.DRAW_LAUNCHES = 0
+        t0 = time.perf_counter()
+        vout = run_campaign(specs, pool=0, service=True, store_base=store,
+                            name="v3")
+        vwall = time.perf_counter() - t0
+        v3_launches = (wgl_mxu.LAUNCHES, engine_v3.LAUNCHES,
+                       engine_v3.DRAW_LAUNCHES)
+        launches["wgl_wave"] += v3_launches[0]
+        launches["drain"] += v3_launches[1]
+        launches["draws"] += v3_launches[2]
+        direct = generate_for_opts(
+            dict(specs[0]["opts"]), list(range(SVC_SEEDS)),
+            device=specs[0]["opts"].get("device"))["histories"]
+        vbad = []
+        for r, h in zip(vout["runs"], direct):
+            # the stored bytes are the history's to_jsonl(), which
+            # history_sha hashes
+            with open(os.path.join(r["dir"], "history.jsonl"), "rb") as f:
+                sha = hashlib.sha256(f.read()).hexdigest()
+            if sha != history_sha(h) or r["gen-epoch"] != "epoch-v3" or \
+                    stored(r["dir"]) != recheck(r["dir"], h):
+                vbad.append(r["index"])
+        vctr = vout["service"]["counters"]
+        gb = vout["genbatch"]
+        check_s = sum(r["check_s"] for r in vout["runs"])
+        print(f"campaign (c) epoch-v3 on {card}: {vout['count']} runs of "
+              f"{vout['runs'][0]['ops']} ops, one batched cell: genbatch "
+              f"{gb['events']} events at {gb['ops_per_s']} events/s "
+              f"(generation {gb['events'] / gb['ops_per_s']:.3f} s), the "
+              f"runs' check {check_s:.3f} s, wall {vwall:.3f} s; service "
+              f"ticks {vctr.get('service.ticks')} for {vout['count']} runs, "
+              f"submitted {vctr.get('service.submitted')}, coalesced "
+              f"{vctr.get('service.coalesced')} (a run's keys share its "
+              f"tick: the cell checks one run at a time); drain launches "
+              f"{v3_launches[1]}, draws {v3_launches[2]}, wgl_wave "
+              f"{v3_launches[0]}; histories = generate_for_opts "
+              f"on the card and verdicts = in-process checks: {not vbad}",
+              flush=True)
+        if not vout["valid?"] or vbad or gb["epoch"] != "epoch-v3" or \
+                vctr.get("service.fallback"):
+            fail(f"campaign (c): runs {vbad} differ")
+
+        # -- (d) guided search, shrink and replay ------------------------
+        t0 = time.perf_counter()
+        gout = run_guided(dict(GUIDED_BASE), ["register"], GUIDED_CELLS,
+                          budget=12, seed0=7, pool=0, service=False,
+                          live=False, store_base=os.path.join(store, "g"),
+                          name="hunt")
+        gwall = time.perf_counter() - t0
+        gcpu = run_guided(dict(GUIDED_BASE, device="cpu"), ["register"],
+                          GUIDED_CELLS, budget=12, seed0=7, pool=0,
+                          service=False, live=False,
+                          store_base=os.path.join(store, "gc"),
+                          name="hunt")
+        mini = gout["minimized"]
+        rc = None
+        if mini:
+            rc = cli.main(["replay", os.path.join(mini[0]["dir"],
+                                                  "shrink.json"),
+                           "--device", "cuda"])
+        same = guided_view(gout) == guided_view(gcpu)
+        print(f"campaign (d) guided on {card}: {gout['runs']} runs in "
+              f"{gout['generations']} generations, wall {gwall:.3f} s; "
+              f"first failure at run {gout['first_failure_run']}; "
+              f"signatures {gout['signatures']}; minimized "
+              f"{[(m['original_windows'], m['windows'], m['nemesis_ops']) for m in mini]} "
+              f"(windows before, after, nemesis ops); replay --device cuda "
+              f"exit {rc}; summary = the CPU's: {same}", flush=True)
+        if not gout["first_failure_run"] or \
+                gout["first_failure_run"] > 12 or not mini or \
+                mini[0]["nemesis_ops"] >= 10 or rc != 0 or not same:
+            fail("campaign (d): guided search, shrink or replay")
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    return launches
+
+
+def frame_tables_entry(p, card: str, dev, launches: int) -> dict:
+    """The frame tables (``wgl_mxu.build_tables``, the reference's
+    ``_build_tables_one``) at the register cell: its tables held exactly
+    against the host packer ``pack_tables`` (its plain version), timed
+    beside it and beside its ``torch.gather``s alone (the library calls
+    it issues; it has no matmul), with its bound counted from the data."""
+    import numpy as np
+    import torch
+    from jepsen_etcd_tpu_torch.ops import wgl, wgl_mxu
+    wk = p.w
+    r_pad = max(wgl.bucket(p.R), wgl_mxu.TSUB)
+    i32, u16 = wgl_mxu.pack_perop_batch([p], r_pad)
+    ti = torch.from_numpy(i32).to(dev)
+    tu = torch.from_numpy(u16.astype(np.int32)).to(dev)
+    ms = cuda_ms(lambda: wgl_mxu.build_tables(ti, tu, r_pad, wk), 21)
+    tab, scal = wgl_mxu.build_tables(ti, tu, r_pad, wk)
+    t0 = time.perf_counter()
+    ptab, pscal = wgl_mxu.pack_tables(p, r_pad)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = max(int(np.abs(tab[0].cpu().numpy().astype(np.int64)
+                         - ptab.astype(np.int64)).max()),
+              int(np.abs(scal[0].cpu().numpy().astype(np.int64)
+                         - pscal.astype(np.int64)).max()))
+    # the library calls alone: one gather of the nine window columns at
+    # build_tables' index
+    u = tu.to(torch.int64)
+    pos = u[:, :, wgl_mxu.C_LO:wgl_mxu.C_LO + 1] + \
+        torch.arange(wk, device=dev)[None, None, :]
+    flat = pos.clamp(0, p.R - 1).reshape(1, r_pad * wk)
+    cols = torch.cat([ti.to(torch.int64)[:, :, :2], u[:, :, :7]], dim=2)
+    idx = flat[:, :, None].expand(1, r_pad * wk, cols.shape[2])
+    lib_ms = cuda_ms(lambda: torch.gather(cols, 1, idx), 21)
+    nbytes = (ti.numel() + tu.numel() + tab.numel() + scal.numel()) * 4
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops = p.R * wk * (FRAME_OPS_PER_SLOT + wk * FRAME_OPS_PER_PAIR)
+    ops_ms = ops / ALU32_OPS_PER_S * 1e3
+    print(f"frame tables on {card}: build_tables at R={p.R} (r_pad "
+          f"{r_pad}, wk {wk}) {ms:.3f} ms (CUDA events, median of 21), "
+          f"{launches} build(s) on the main path; plain pack_tables on the "
+          f"host {plain_ms:.1f} ms; its gathers alone {lib_ms:.3f} ms; "
+          f"bound {max(bytes_ms, ops_ms):.4f} ms (bytes {nbytes}: "
+          f"{bytes_ms:.4f} ms; operations {ops}: {ops_ms:.4f} ms); "
+          f"max_abs_err {err}", flush=True)
+    if err:
+        fail("build_tables disagrees with pack_tables at the register cell")
+    if launches < 1:
+        fail("the main path did not build its tables on the card")
+    return {"name": "frame_tables", "route": "torch",
+            "source": "jepsen_etcd_tpu_torch/ops/wgl_mxu.py",
+            "replaces": "jepsen_etcd_tpu/ops/wgl_mxu.py:306",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": lib_ms}
+
+
+def ladder_rungs(p, dev) -> tuple:
+    """The ladder alone on one pack, as ``check_packed(p, f_max=32)``
+    climbs it (rung 32, then up), its waves replayed from CUDA graphs:
+    (accepted, waves, peak, waves run at each rung's capacity,
+    seconds)."""
+    import torch
+    from jepsen_etcd_tpu_torch.ops import wgl
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ladder = wgl._ladder(p, wgl.LADDER[0])
+    ni = wgl.info_dims(p)[1]
+    tables = wgl.device_tables(p, dev)
+    valid, overflow, k, peak, frontier = wgl._wgl_loop(
+        tables, p.R, p.I, ladder[0], p.w,
+        (0, *wgl._initial_frontier(ladder[0], p.w // 32, ni, dev)))
+    per_rung = [(ladder[0], k)]
+    peak_all = max(1, peak)
+    for f_next in ladder[1:]:
+        if not overflow:
+            break
+        k0 = k
+        valid, overflow, k, peak, frontier = wgl._wgl_loop(
+            tables, p.R, p.I, f_next, p.w,
+            (k, *wgl._grow(frontier, f_next)))
+        per_rung.append((f_next, k - k0))
+        peak_all = max(peak_all, peak)
+    torch.cuda.synchronize()
+    return valid, k, peak_all, per_rung, time.perf_counter() - t0
+
+
+def rung_entry(p, card: str, dev, launches: int, eager: dict,
+               eager_s: float) -> dict:
+    """The unsharded B3 rung (``_expand`` / ``_wgl_loop`` /
+    ``_graph_waves``) at the ladder-at-real-size cell: the ladder alone,
+    its waves replayed from CUDA graphs, held against ``eager`` (the
+    checker's ``check_packed`` with the same ops issued one by one, its
+    plain version, which took ``eager_s``); the bound counted from the
+    waves each rung ran at its capacity, as the sharded rung's row."""
+    from jepsen_etcd_tpu_torch.ops import wgl
+    valid, waves, peak, per_rung, secs = ladder_rungs(p, dev)
+    err = max(int(valid != eager["valid?"]),
+              abs(waves - eager.get("waves", 0)),
+              abs(peak - eager.get("peak-frontier", 0)),
+              abs(len(per_rung) - eager.get("rungs", 0)))
+    ops = sum(k * f * p.w * WGL_OPS_PER_CANDIDATE for f, k in per_rung)
+    ops_ms = ops / ALU32_OPS_PER_S * 1e3
+    nbytes = sum(int(t.numel()) * t.element_size()
+                 for t in wgl.device_tables(p, dev).values())
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"B3 rung on {card}: the ladder alone from rung 32, waves at "
+          f"each rung {per_rung}, accepted {valid}, peak {peak}: CUDA "
+          f"graphs {secs * 1e3:.1f} ms, eager (its plain version, through "
+          f"check_packed) {eager_s * 1e3:.1f} ms; {launches} rung run(s) "
+          f"on the checker's path; bound {max(ops_ms, bytes_ms):.4f} ms "
+          f"(operations {ops}: {ops_ms:.4f} ms; bytes {nbytes} of tables "
+          f"{bytes_ms:.4f} ms); max_abs_err {err}", flush=True)
+    if err:
+        fail("the graphed rung disagrees with its eager run")
+    if launches < 1:
+        fail("the checker's path ran no rung on the card")
+    return {"name": "wgl_rung", "route": "torch",
+            "source": "jepsen_etcd_tpu_torch/ops/wgl.py",
+            "replaces": "jepsen_etcd_tpu/ops/wgl.py:1669",
+            "launches": launches, "max_abs_err": err, "ms": secs * 1e3,
+            "plain_ms": eager_s * 1e3, "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None}
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2173,8 +2634,11 @@ def main() -> None:
     card = card_line()
     print(card, flush=True)
     kind = torch.cuda.get_device_name(0)
+    # (section, start) of each numbered section below, for its seconds
+    marks = []
 
     # -- 1. build -----------------------------------------------------
+    marks.append((1, time.perf_counter()))
     from concurrent.futures import ThreadPoolExecutor
     t0 = time.perf_counter()
     sources = ["wgl_wave", "indel_bits", "drain_register"]
@@ -2184,6 +2648,7 @@ def main() -> None:
           f"in {time.perf_counter() - t0:.2f} s", flush=True)
 
     # -- 2. kernel vs plain on the card -------------------------------
+    marks.append((2, time.perf_counter()))
     print("kernel vs plain (exact, tolerance 0):", flush=True)
     max_err, batch = hold_wgl_fuzz(dev)
     print("indel_bits vs plain (exact, tolerance 0):", flush=True)
@@ -2222,18 +2687,20 @@ def main() -> None:
     del wlong, long_in
 
     # -- 3. the main path at full size --------------------------------
+    marks.append((3, time.perf_counter()))
     h = gen_history(random.Random(MAIN_SEED), n_procs=MAIN_PROCS,
                     n_ops=MAIN_OPS)
     bad = gen_history(random.Random(MAIN_SEED), n_procs=MAIN_PROCS,
                       n_ops=MAIN_OPS, corrupt=True)
     checker = TPULinearizableChecker()
     torch.cuda.synchronize()
-    wgl_mxu.LAUNCHES = ed.LAUNCHES = 0
+    wgl_mxu.LAUNCHES = ed.LAUNCHES = wgl_mxu.BUILDS = 0
     t0 = time.perf_counter()
     res = checker.check({}, h)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = wgl_mxu.LAUNCHES
+    builds = wgl_mxu.BUILDS
     t0 = time.perf_counter()
     res_bad = checker.check({}, bad)
     wall_bad_s = time.perf_counter() - t0
@@ -2255,6 +2722,7 @@ def main() -> None:
                                         dev))
 
     # -- 4. timing at the main path's shapes --------------------------
+    marks.append((4, time.perf_counter()))
     # one check's stages on the host clock, each ending in a sync
     stages = {}
     t0 = time.perf_counter()
@@ -2272,6 +2740,7 @@ def main() -> None:
     stages["decode"] = time.perf_counter() - t0
     print("main path stages (s): " + ", ".join(
         f"{k} {v:.4f}" for k, v in stages.items()), flush=True)
+    frame_entry = frame_tables_entry(p, card, dev, builds)
     t_pack = stages["pack"]
     btab, bscal, bwk = tables_for(batch, dev)
     batch_ms = cuda_ms(lambda: wgl_mxu.wave_search(btab, bscal, bwk), 21)
@@ -2344,6 +2813,7 @@ def main() -> None:
           f"check wall {wall_bad_s:.3f} s", flush=True)
 
     # -- 5. the watch path at full size --------------------------------
+    marks.append((5, time.perf_counter()))
     wh = gen_watch_history(random.Random(WATCH_SEED),
                            n_writers=WATCH_WRITERS,
                            n_watchers=WATCH_WATCHERS, n_writes=WATCH_WRITES)
@@ -2442,6 +2912,7 @@ def main() -> None:
           flush=True)
 
     # -- 6. the capacity ladder, the spill BFS and check_prefix ----------
+    marks.append((6, time.perf_counter()))
     big = gen_history(random.Random(MAIN_SEED), n_procs=LADDER_BIG_PROCS,
                       n_ops=MAIN_OPS)
     big_bad = impossible_read_at(big, LADDER_BIG_AT)
@@ -2449,9 +2920,11 @@ def main() -> None:
                                ("impossible read", big_bad, "jnp-ladder")]:
         max_err = max(max_err, hold_history(
             hist, f"ladder at real size, {what}", dev))
+        wgl.RUNG_LAUNCHES = 0
         t0 = time.perf_counter()
         out = checker.check({}, hist)
         wall_l = time.perf_counter() - t0
+        rung_launches = wgl.RUNG_LAUNCHES
         dfs = check_history(VersionedRegister(), hist)
         print(f"ladder at real size, {LADDER_BIG_PROCS} processes, "
               f"{len(hist)} entries, {what}: valid?={out['valid?']} "
@@ -2487,6 +2960,7 @@ def main() -> None:
           f"wave); same dict: {graphed == eager}", flush=True)
     if graphed != eager or graphed.get("engine") != "jnp-ladder":
         fail(f"ladder with CUDA graphs {graphed} != eager {eager}")
+    rung = rung_entry(p, card, dev, rung_launches, eager, wall_eager)
     lchecker = TPULinearizableChecker(cpu_cutoff=None)
     ladder_cases = [
         ("info-op history", gen_history(
@@ -2532,23 +3006,40 @@ def main() -> None:
             fail(f"spill verdict {out}")
 
     # -- 7. the keyed register check ----------------------------------
+    marks.append((7, time.perf_counter()))
     batch_entries = keyed_register_check(card)
 
     # -- 8. Elle: the closure, list-append and rw-register ------------
+    marks.append((8, time.perf_counter()))
     elle_entries = elle_phase(card, torch.device("cuda", 0))
 
     # -- 9. the simulator: drain, generation, checks, fused pipeline ---
+    marks.append((9, time.perf_counter()))
     sim_entries = simulator_phase(card, torch.device("cuda", 0))
 
     # -- 10. the checker service: a campaign through one service --------
+    marks.append((10, time.perf_counter()))
     svc_entries = service_phase(card, torch.device("cuda", 0))
 
     # -- 11. the test entry point on the simulated cluster --------------
+    marks.append((11, time.perf_counter()))
     runner = runner_phase(card, torch.device("cuda", 0))
     batch_entries[0]["launches"] += runner["launches"]
     batch_entries[0]["max_abs_err"] = max(batch_entries[0]["max_abs_err"],
                                           runner["max_abs_err"])
 
+    # -- 12. the campaign runner ----------------------------------------
+    marks.append((12, time.perf_counter()))
+    camp = campaign_phase(card, torch.device("cuda", 0))
+    batch_entries[0]["launches"] += camp["wgl_wave"]
+    for e in sim_entries:
+        e["launches"] += {"drain_register": camp["drain"],
+                          "threefry_draws": camp["draws"]}[e["name"]]
+
+    marks.append((None, time.perf_counter()))
+    print("section seconds on " + card + ": " + ", ".join(
+        f"{n} {t1 - t0:.1f}" for (n, t0), (_, t1) in zip(marks, marks[1:])),
+        flush=True)
     print(json.dumps({"kernels": [{
         "name": "wgl_wave", "route": "cuda",
         "source": "jepsen_etcd_tpu_torch/csrc/wgl_wave.cu",
@@ -2565,8 +3056,8 @@ def main() -> None:
         "bound_ms": b2_work["bound_ms"],
         "bound_by": "bytes" if b2_work["bytes_ms"] >= b2_work["ops_ms"]
         else "operations",
-        "library_ms": None}] + batch_entries + elle_entries
-        + sim_entries + svc_entries}),
+        "library_ms": None}, frame_entry, rung] + batch_entries
+        + elle_entries + sim_entries + svc_entries}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,8 +1,10 @@
 """PyTorch/CUDA port of jepsen_etcd_tpu: register linearizability (the
 wave kernel, the capacity ladder and the spill BFS), the watch checker
 (the edit-distance wavefront), Elle (the boolean closure), the batched
-simulator, the checker service and the ``test`` command on the
-simulated cluster (``python -m jepsen_etcd_tpu_torch test ...``).
+simulator, the checker service, the ``test`` command on the simulated
+cluster (``python -m jepsen_etcd_tpu_torch test ...``) and the campaign
+runner (``campaign``, with guided search, shrink and ``replay``, host
+agents and the ``tel`` command).
 
 The JAX package ``jepsen_etcd_tpu`` is the reference; this package keeps
 its module layout (``core/``, ``models/``, ``checkers/``, ``ops/``,

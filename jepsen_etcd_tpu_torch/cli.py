@@ -1,14 +1,18 @@
-"""CLI: `python -m jepsen_etcd_tpu_torch test|test-all|checker-service`.
+"""CLI: `python -m jepsen_etcd_tpu_torch test|test-all|campaign|...`.
 
 Mirrors the reference's lein run commands and flags (etcd.clj:157-257):
 test runs one composed test on the simulated cluster; test-all sweeps
-nemeses x workloads; checker-service runs the batched checker service
-(``runner/checker_service.py``) until interrupted. The checkers run on
-``--device`` (default ``cuda``); ``--device cpu`` runs the kernels'
-plain PyTorch versions. The live side (``--client-type http|grpc``,
-``--db local|live``, ``--soak``), ``--stream`` and the campaign,
-serve, tel, store, gateway, replay and worker-agent commands are not
-ported yet (ROADMAP A).
+nemeses x workloads; campaign fans the matrix over a pool of worker
+processes (or ``--hosts`` worker agents) with one checker service, or
+runs a coverage-guided search (``--guided``); checker-service runs the
+batched checker service (``runner/checker_service.py``) until
+interrupted; replay re-executes a minimized repro (``shrink.json``);
+worker-agent is one campaign host agent; tel mines telemetry artifacts.
+The checkers run on ``--device`` (default ``cuda``); ``--device cpu``
+runs the kernels' plain PyTorch versions. The live side
+(``--client-type http|grpc``, ``--db local|live``, ``--soak``),
+``--stream`` and the serve, store and gateway commands are not ported
+yet (ROADMAP A).
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import os
 import sys
 
 from .compose import etcd_test
@@ -40,8 +45,10 @@ ALL_NEMESES = [
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="jepsen_etcd_tpu_torch")
     sub = p.add_subparsers(dest="command", required=True)
-    for cmd in ("test", "test-all"):
+    subs = {}
+    for cmd in ("test", "test-all", "campaign"):
         s = sub.add_parser(cmd)
+        subs[cmd] = s
         # None means "register" for test, "all workloads" for test-all
         # (the reference's test-all honors -w as a narrowing filter,
         # etcd.clj:238-242)
@@ -85,6 +92,14 @@ def build_parser() -> argparse.ArgumentParser:
                             "(phase/checker spans and kernel counters "
                             "are on by default)")
         s.add_argument("--test-count", type=int, default=1)
+        s.add_argument("--inject-stale-reads", action="store_true",
+                       help="seed the sim's stale-read bug class "
+                            "(the batched generator, epoch-v2/v3): "
+                            "reads may return the pre-last-write "
+                            "snapshot — with faults configured, only "
+                            "inside an open partition window (the "
+                            "guided-campaign target); with none, "
+                            "unconditionally")
         s.add_argument("--only-workloads-expected-to-pass",
                        action="store_true")
         s.add_argument("--store", default="store")
@@ -93,12 +108,88 @@ def build_parser() -> argparse.ArgumentParser:
                             "service (see the checker-service "
                             "subcommand): device-bound checks are "
                             "shipped there and batched across every "
-                            "submitting run; unset = check in-process")
+                            "submitting run; unset = check in-process "
+                            "(campaign hosts its own unless "
+                            "--no-service)")
         s.add_argument("--device", default="cuda",
                        help="device the checkers run on (default cuda: "
                             "the hand-written kernels; raises when no "
                             "card is present). cpu runs their plain "
                             "PyTorch versions")
+    camp = subs["campaign"]
+    camp.add_argument("--pool", type=int, default=4,
+                      help="worker processes running tests concurrently "
+                           "(0 = inline in this process)")
+    camp.add_argument("--no-service", action="store_true",
+                      help="skip the shared checker service: every "
+                           "worker dispatches its own device checks "
+                           "(pays the per-run dispatch floor)")
+    camp.add_argument("--no-live", action="store_true",
+                      help="skip the live telemetry collector (no "
+                           "live.sock/live.json); runs record exactly "
+                           "as before")
+    camp.add_argument("--service-tick", type=float, default=0.05,
+                      help="checker-service coalescing window in "
+                           "seconds: pending packs from all runners "
+                           "batch into one dispatch per (bucket, "
+                           "width) per tick")
+    camp.add_argument("--campaign-name", default="campaign",
+                      help="store dir name for the campaign summary "
+                           "(store/<name>/<id>/campaign.json)")
+    camp.add_argument("--gen-epoch", default="epoch-v1",
+                      choices=["epoch-v1", "epoch-v2", "epoch-v3"],
+                      help="generator epoch (epoch ledger, runner/"
+                           "sim.py): epoch-v2 routes every sim run "
+                           "through the batched lockstep generator "
+                           "(simbatch/) on the host — S seeds per "
+                           "(workload, nemesis) cell generated in one "
+                           "columnar pass, histories born as "
+                           "OpColumns; epoch-v3 runs the same cells "
+                           "with their draws and drain on --device "
+                           "(MVCC workloads delegate to the epoch-v2 "
+                           "sweep); runs the batched generator cannot "
+                           "serve (unsupported workloads) fall back to "
+                           "epoch-v1, and every campaign.json row "
+                           "records the epoch that actually produced it")
+    camp.add_argument("--hosts", type=int, default=0,
+                      help="multi-host fan-out: spawn N worker-agent "
+                           "processes (host1..hostN) that pull runs "
+                           "over loopback TCP and ship device checks "
+                           "to the campaign's TCP checker service "
+                           "with a campaign-minted auth token; "
+                           "replaces --pool for the non-batched "
+                           "specs (0 = local process pool)")
+    camp.add_argument("--force-kernel", action="store_true",
+                      help="disable the native-DFS size cutoff so "
+                           "every key is device-bound (coalescing "
+                           "demos/tests; production keeps the "
+                           "measured routing)")
+    camp.add_argument("--guided", type=int, default=0, metavar="N",
+                      help="coverage-guided mode: spend a budget of N "
+                           "runs adaptively instead of sweeping the "
+                           "matrix uniformly — generation 0 "
+                           "stratifies one run per cell, later "
+                           "generations mutate a corpus of "
+                           "novelty-scored ancestors (runner/"
+                           "guided.py); failing schedules are "
+                           "delta-debugged to minimal repros "
+                           "(shrink.json). Forces gen-epoch epoch-v2 "
+                           "for sim specs")
+    camp.add_argument("--master-seed", type=int, default=None,
+                      help="--guided: the search RNG seed (mutation/"
+                           "crossover draws; default: --seed) — one "
+                           "master seed fully determines the search")
+    camp.add_argument("--corpus-in", default=None, metavar="PATH",
+                      help="--guided: warm-start from a corpus "
+                           "exported by --corpus-out — ancestors "
+                           "join the pool and already-seen "
+                           "signatures/cells/envelope peaks stop "
+                           "scoring as novel")
+    camp.add_argument("--corpus-out", default=None, metavar="PATH",
+                      help="--guided: export the final novelty-scored "
+                           "corpus (ancestors, envelope, signature/"
+                           "cell ledgers) as JSON for a later "
+                           "--corpus-in")
     cs = sub.add_parser("checker-service",
                         help="run a standalone batched checker service: "
                              "one process owns the card; concurrent "
@@ -123,6 +214,63 @@ def build_parser() -> argparse.ArgumentParser:
                          "present (default: env "
                          "JEPSEN_ETCD_TPU_SERVICE_TOKEN; unset = "
                          "unauthenticated)")
+    wa = sub.add_parser("worker-agent",
+                        help="one generator-host agent: registers "
+                             "with a campaign's HostAgentPool over "
+                             "TCP, pulls run specs, ships device "
+                             "checks to the fleet's checker service, "
+                             "returns summary rows (spawned by "
+                             "campaign --hosts; rarely run by hand)")
+    wa.add_argument("--connect", required=True,
+                    help="the pool endpoint (tcp://HOST:PORT)")
+    wa.add_argument("--host", required=True,
+                    help="this agent's host name (row + ledger "
+                         "attribution)")
+    wa.add_argument("--token", default=None,
+                    help="pool auth token (default: env "
+                         "JEPSEN_ETCD_TPU_SERVICE_TOKEN)")
+    tl = sub.add_parser("tel",
+                        help="mine telemetry artifacts offline: span "
+                             "percentile tables (default), --diff "
+                             "two runs, --ledger a campaign dir, or "
+                             "--coverage feature vectors; does no "
+                             "device work")
+    tl.add_argument("paths", nargs="+",
+                    help="telemetry.jsonl/service.jsonl files, run "
+                         "dirs, campaign dirs, or a store base "
+                         "(--coverage)")
+    tl.add_argument("--diff", action="store_true",
+                    help="compare spans across exactly two inputs")
+    tl.add_argument("--ledger", action="store_true",
+                    help="verify a campaign's shipped/queue-wait/"
+                         "trace-join accounting (exit 1 on mismatch)")
+    tl.add_argument("--coverage", action="store_true",
+                    help="emit the per-run + aggregate coverage "
+                         "vector (frontier, wave depth, rungs, "
+                         "spills, verdict signatures)")
+    tl.add_argument("--corpus", action="store_true",
+                    help="inspect a guided campaign (guided.json): "
+                         "corpus ancestors, novel signatures, "
+                         "minimized repros")
+    tl.add_argument("--json", action="store_true", dest="as_json",
+                    help="machine-readable output")
+    tl.add_argument("--no-index", action="store_true", dest="no_index",
+                    help="bypass the store index and walk the tree "
+                         "(output is bit-identical either way)")
+    rp = sub.add_parser("replay",
+                        help="re-execute a minimized repro "
+                             "(shrink.json): regenerate the history "
+                             "from the stored config + seed via the "
+                             "batched generator, re-check it, and "
+                             "verify the verdict signature matches "
+                             "(exit 1 when it does not)")
+    rp.add_argument("artifact",
+                    help="path to a shrink.json store artifact (or a "
+                         "run dir containing one)")
+    rp.add_argument("--device", default="cuda",
+                    help="device the re-check runs on (default cuda; "
+                         "raises when no card is present). cpu runs "
+                         "the kernels' plain PyTorch versions")
     return p
 
 
@@ -142,6 +290,9 @@ def parse_nemesis_spec(spec: str) -> list[str]:
 
 
 def opts_from_args(args) -> dict:
+    """The run opts of a parsed command line: the reference's keys
+    (options the port's parser does not offer take their defaults),
+    plus ``device``."""
     nodes = [n.strip() for n in args.nodes.split(",") if n.strip()]
     conc = args.concurrency
     if isinstance(conc, str):
@@ -161,6 +312,10 @@ def opts_from_args(args) -> dict:
         "serializable": args.serializable,
         "lazyfs": args.lazyfs,
         "client_type": args.client_type,
+        "db_mode": getattr(args, "db", None),
+        "etcd_binary": getattr(args, "etcd_binary", None),
+        "etcd_data_dir": getattr(args, "etcd_data_dir", None),
+        "net_proxy": getattr(args, "net_proxy", False),
         "snapshot_count": args.snapshot_count,
         "unsafe_no_fsync": args.unsafe_no_fsync,
         "corrupt_check": args.corrupt_check,
@@ -168,8 +323,16 @@ def opts_from_args(args) -> dict:
         "seed": args.seed,
         "debug": args.debug,
         "tcpdump": args.tcpdump,
-        "no_telemetry": args.no_telemetry,
-        "checker_service": args.checker_service,
+        "no_telemetry": getattr(args, "no_telemetry", False),
+        "inject_stale_reads": getattr(args, "inject_stale_reads",
+                                      False),
+        "checker_service": getattr(args, "checker_service", None),
+        "stream": getattr(args, "stream", False),
+        "stream_chunk_ops": getattr(args, "stream_chunk_ops", 1024),
+        "soak": getattr(args, "soak", False),
+        "soak_windows": getattr(args, "soak_windows", 0),
+        "soak_window_s": getattr(args, "soak_window_s", None),
+        "soak_net_faults": getattr(args, "soak_net_fault", None) or [],
         "store_base": args.store,
         "device": args.device,
     }
@@ -204,11 +367,99 @@ def run_one(opts: dict) -> dict:
     return out
 
 
+def run_campaign_command(args) -> int:
+    """The ``campaign`` command: a matrix sweep through
+    ``run_campaign``, or with ``--guided N`` a coverage-guided search
+    through ``run_guided``; both resolve ``--device`` before the pool,
+    the agents or the service start."""
+    from .runner.campaign import campaign_specs, run_campaign
+    base = opts_from_args(args)
+    if args.force_kernel:
+        base["force_kernel"] = True
+    base["gen_epoch"] = args.gen_epoch
+    wls, nemeses = test_all_matrix(args)
+    if args.guided:
+        from .runner.guided import run_guided
+
+        def _print_guided_row(row):
+            print(json.dumps({k: row.get(k) for k in
+                              ("index", "workload", "nemesis",
+                               "seed", "status", "valid", "dir")}))
+
+        out = run_guided(
+            base, wls, nemeses, budget=args.guided,
+            seed0=args.seed, master_seed=args.master_seed,
+            pool=args.pool,
+            service=not args.no_service and not base.get(
+                "checker_service"),
+            service_tick_s=args.service_tick,
+            store_base=args.store,
+            name=args.campaign_name
+            if args.campaign_name != "campaign" else "guided",
+            live=not args.no_live, hosts=args.hosts or None,
+            on_row=_print_guided_row,
+            corpus_in=args.corpus_in, corpus_out=args.corpus_out)
+        print(json.dumps({
+            "guided": out["name"], "dir": out["dir"],
+            "budget": out["budget"], "runs": out["runs"],
+            "generations": out["generations"],
+            "signatures": out["signatures"],
+            "first_failure_run": out["first_failure_run"],
+            "corpus": len(out["corpus"]),
+            "corpus_imported": out["corpus_imported"],
+            "corpus_out": out["corpus_out"],
+            "minimized": [{k: m.get(k) for k in
+                           ("dir", "signature", "windows",
+                            "nemesis_ops", "repro")}
+                          for m in out["minimized"]],
+            "wall_s": out["wall_s"],
+        }))
+        # a guided campaign EXISTS to find failures: exit 0 means the
+        # search completed, not that every run passed
+        return 0
+    specs = campaign_specs(base, wls, nemeses,
+                           runs_per_cell=args.test_count,
+                           seed0=args.seed)
+
+    def _print_row(row):
+        print(json.dumps({k: row.get(k) for k in
+                          ("index", "workload", "nemesis", "seed",
+                           "status", "valid", "dir", "wall_s")}))
+
+    out = run_campaign(
+        specs, pool=args.pool,
+        # an external service (--checker-service) rides in via the
+        # per-spec opts; hosting one on top would shadow it
+        service=not args.no_service and not base.get("checker_service"),
+        service_tick_s=args.service_tick,
+        store_base=args.store, name=args.campaign_name,
+        live=not args.no_live,
+        hosts=args.hosts or None,
+        on_row=_print_row)
+    svc_counters = ((out.get("service") or {}).get("counters") or {})
+    print(json.dumps({
+        "campaign": out["name"], "dir": out["dir"],
+        "runs": out["count"], "valid?": out["valid?"],
+        "failures": [repr(f) for f in out["failures"]],
+        "wall_s": out["wall_s"],
+        "service": {k: svc_counters[k] for k in sorted(svc_counters)
+                    if k.startswith(("service.", "wgl.", "mxu."))}
+        if svc_counters else None,
+    }))
+    return 0 if out["valid?"] else 1
+
+
 def main(argv=None) -> int:
     logging.basicConfig(
         level=logging.INFO,
         format="%(asctime)s %(levelname)s %(name)s: %(message)s")
     args = build_parser().parse_args(argv)
+    if args.command == "tel":
+        from .tel_cli import run as tel_run
+        return tel_run(args)
+    if args.command == "worker-agent":
+        from .runner.host_agent import agent_main
+        return agent_main(args.connect, args.host, token=args.token)
     if args.command == "checker-service":
         import time as _time
         from .runner.checker_service import CheckerService
@@ -225,6 +476,20 @@ def main(argv=None) -> int:
         finally:
             svc.close()
         return 0
+    if args.command == "replay":
+        from .device import resolve_device
+        from .runner.shrink import replay_artifact
+        # the card unless --device names another: raises here, before
+        # anything runs, when there is none
+        resolve_device(args.device)
+        path = args.artifact
+        if os.path.isdir(path):
+            path = os.path.join(path, "shrink.json")
+        out = replay_artifact(path, device=args.device)
+        print(json.dumps(out, indent=2, sort_keys=True))
+        return 0 if out["match"] else 1
+    if args.command == "campaign":
+        return run_campaign_command(args)
     if args.command == "test":
         opts = opts_from_args(args)
         ok = True

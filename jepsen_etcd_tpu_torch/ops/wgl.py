@@ -47,6 +47,7 @@ import torch
 from ..checkers.linearizable import history_entries
 from ..core.history import TYPE_NAMES, History
 from ..device import lane_stream, resolve_device
+from ..runner import telemetry
 from .common import UnsupportedValue, ValueIds, as_version, \
     register_value_sets
 
@@ -78,6 +79,10 @@ SPILL_STATE_BUDGET = 3_000_000
 SPILL_I_LIMIT = 24
 SPILL_STATE_BUDGET_HIGH_I = 1_000_000
 SPILL_WALL_BUDGET_S = 60.0  # hopeless-width searches must fail fast
+
+#: rung runs (``_wgl_loop`` calls) on the card in this process; a caller
+#: may reset it to 0 to count one run
+RUNG_LAUNCHES = 0
 
 #: waves between host reads of the ladder's loop condition. Waves past
 #: the end are masked no-ops, so any value gives the same result.
@@ -1669,8 +1674,12 @@ def _wgl_loop(tables: dict, R: int, I: int, f_max: int, w: int, init0,
     (``_graph_waves``). Returns (accepted, overflow, k, peak, frontier)
     with the first four as Python values and the frontier's tensors on
     the device."""
+    global RUNG_LAUNCHES
     k0, dvec, wvec, ivec, vvec, n_alive = init0
     dev = dvec.device
+    if dev.type == "cuda":
+        with _sharded_lock:
+            RUNG_LAUNCHES += 1
     lim = (R + I + 1) if k_stop is None else min(k_stop, R + I + 1)
     i64 = torch.int64
     n_alive = torch.as_tensor(n_alive, dtype=i64, device=dev)
@@ -1790,6 +1799,30 @@ def _ladder_result(p: Packed, valid: bool, k: int, peak: int,
 
 def check_packed(p: Packed, f_max: Optional[int] = None,
                  spill: bool = True, device=None) -> dict:
+    """Telemetry shell around :func:`_check_packed_impl`, as the
+    reference's: one ``wgl.check_packed`` span a call, plus the routing
+    counters a run's results.json surfaces (dispatch count, rung total,
+    peak frontier and wave depth across the run)."""
+    tel = telemetry.current()
+    with tel.span("wgl.check_packed", ops=getattr(p, "R", None),
+                  w=getattr(p, "w", None)) as sp:
+        out = _check_packed_impl(p, f_max=f_max, spill=spill,
+                                 device=device)
+        sp.set(engine=out.get("engine"), valid=out.get("valid?"),
+               rungs=out.get("rungs"), waves=out.get("waves"),
+               peak_frontier=out.get("peak-frontier"))
+    tel.counter("wgl.dispatches")
+    if out.get("rungs"):
+        tel.counter("wgl.rungs", out["rungs"])
+    if out.get("waves"):
+        tel.counter("wgl.waves", out["waves"], mode="max")
+    if out.get("peak-frontier"):
+        tel.counter("wgl.max-frontier", out["peak-frontier"], mode="max")
+    return out
+
+
+def _check_packed_impl(p: Packed, f_max: Optional[int] = None,
+                       spill: bool = True, device=None) -> dict:
     """Check one packed history on ``device`` (``cuda`` unless named).
 
     With ``f_max`` None the wave kernel (ops/wgl_mxu.py) goes first; a
@@ -1815,6 +1848,9 @@ def check_packed(p: Packed, f_max: Optional[int] = None,
     ladder = _ladder(p, f_max)
     ni = info_dims(p)[1]
     tables = device_tables(p, dev)
+    # one histogram sample per rung attempt, value = the rung's
+    # frontier budget (the guided coverage vector's wave histogram)
+    telemetry.current().hist("wgl.rung_waves", ladder[0])
     valid, overflow, k, peak, frontier = _wgl_loop(
         tables, p.R, p.I, ladder[0], p.w,
         (0, *_initial_frontier(ladder[0], p.w // 32, ni, dev)))
@@ -1824,6 +1860,7 @@ def check_packed(p: Packed, f_max: Optional[int] = None,
         if not overflow:
             break
         rungs += 1
+        telemetry.current().hist("wgl.rung_waves", f_next)
         valid, overflow, k, peak, frontier = _wgl_loop(
             tables, p.R, p.I, f_next, p.w, (k, *_grow(frontier, f_next)))
         peak_all = max(peak_all, peak)
@@ -2012,6 +2049,12 @@ def _check_bucket_group(packs: list, results: list, idxs: list,
         prepared = prepare_bucket_group(packs, idxs, r_pad, info,
                                         lanes=len(lanes))
     per = prepared.k_pad // len(lanes)
+    tel = telemetry.current()
+    for _ in idxs:
+        # every key in the group attempts the batched rung
+        tel.hist("wgl.rung_waves", f_max)
+    # (peak, waves) of every key's batched rung, overflowed or not
+    rung_stats: list = []
 
     def lane(d: int) -> list:
         """Lane d's real keys (rows d*per onward), searched in order."""
@@ -2028,6 +2071,7 @@ def _check_bucket_group(packs: list, results: list, idxs: list,
                 {name: t[j - rows.start] for name, t in stacked.items()},
                 p.R, p.I, f_max, w,
                 (0, *_initial_frontier(f_max, w // 32, info[1], dev)))
+            rung_stats.append((peak, k))
             if overflow:
                 # climb the remaining rungs per key; spill deferred
                 out.append(check_packed(p, f_max=F_MAX, spill=False,
@@ -2039,7 +2083,14 @@ def _check_bucket_group(packs: list, results: list, idxs: list,
                     **({} if valid else {"stuck-at-depth": k})})
         return out
 
-    lane_outs = _run_lanes(lanes, lane)
+    with tel.span("wgl.batch-dispatch", keys=K, w=w, f_max=f_max):
+        lane_outs = _run_lanes(lanes, lane)
+    tel.counter("wgl.dispatches")
+    if rung_stats:
+        tel.counter("wgl.max-frontier", max(pk for pk, _ in rung_stats),
+                    mode="max")
+        tel.counter("wgl.waves", max(k for _, k in rung_stats),
+                    mode="max")
     if shard and device is None:
         global SHARDED_LAUNCHES
         with _sharded_lock:
@@ -2056,10 +2107,17 @@ def _run_lanes(lanes: list, work) -> list:
     if len(lanes) == 1:
         return [work(0)]
     from concurrent.futures import ThreadPoolExecutor
+    # the lanes record into the caller's recorder (a service tick's),
+    # not the process's
+    tel = telemetry.current()
 
     def on_lane(d: int) -> list:
-        with lane_stream(lanes[d]):
-            return work(d)
+        telemetry.set_thread_current(tel)
+        try:
+            with lane_stream(lanes[d]):
+                return work(d)
+        finally:
+            telemetry.set_thread_current(None)
 
     with ThreadPoolExecutor(len(lanes),
                             thread_name_prefix="wgl-lane") as pool:
@@ -2070,10 +2128,19 @@ def spill_packed(p: Packed, tables, frontier, waves_done: int) -> dict:
     """Budgeted spill continuation from a frozen frontier — the entry
     point for resuming a ``check_packed(..., spill=False)`` overflow
     (its ``_resume`` payload) without re-climbing the ladder."""
-    return _spill_bfs(p, tables, frontier, waves_done,
-                      state_budget=SPILL_STATE_BUDGET
-                      if p.I < SPILL_I_LIMIT
-                      else SPILL_STATE_BUDGET_HIGH_I)
+    tel = telemetry.current()
+    tel.counter("wgl.host-spill")
+    with tel.span("wgl.spill", ops=p.R, w=p.w) as sp:
+        out = _spill_bfs(p, tables, frontier, waves_done,
+                         state_budget=SPILL_STATE_BUDGET
+                         if p.I < SPILL_I_LIMIT
+                         else SPILL_STATE_BUDGET_HIGH_I)
+        sp.set(valid=out.get("valid?"),
+               peak_frontier=out.get("peak-frontier"),
+               states=out.get("states"))
+    if out.get("peak-frontier"):
+        tel.counter("wgl.max-frontier", out["peak-frontier"], mode="max")
+    return out
 
 
 def _spill_bfs(p: Packed, tables, frontier, waves_done: int,
@@ -2203,6 +2270,8 @@ def check_prefix(p: Packed, state: Optional[FrontierState] = None,
         state.k = 0
         state.peak = 1
         state.rungs = 1
+        # rung attempt sample (not per budget chunk)
+        telemetry.current().hist("wgl.rung_waves", state.ladder[0])
     if state.done:
         return state
     p = state.p
@@ -2220,6 +2289,9 @@ def check_prefix(p: Packed, state: Optional[FrontierState] = None,
             # like the one-shot ladder
             state.rung_i += 1
             state.rungs += 1
+            telemetry.current().counter("stream.resume_rungs")
+            telemetry.current().hist("wgl.rung_waves",
+                                     state.ladder[state.rung_i])
             state.frontier = _grow(frontier, state.ladder[state.rung_i])
             return state
         state.done = True

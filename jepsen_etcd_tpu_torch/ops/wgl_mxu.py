@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..runner import telemetry
 from .wgl import CAS, NO_ASSERT, READ, WILDCARD, WRITE, Packed, bucket
 
 F = 32            # frontier capacity (states)
@@ -73,6 +74,11 @@ _M32 = 0xFFFFFFFF
 LAUNCHES = 0
 _launch_lock = threading.Lock()
 _launched_here = threading.local()
+
+
+#: frame builds (``build_tables``) on the card in this process, counted
+#: as LAUNCHES is
+BUILDS = 0
 
 
 def thread_launches() -> int:
@@ -269,8 +275,12 @@ def build_tables(i32: torch.Tensor, u16: torch.Tensor, r_pad: int,
     Every per-op column is gathered at the same sliding-window index
     lo_k + o; the reference rides that gather on the MXU as a one-hot
     bf16 matmul, here it is a plain index gather."""
+    global BUILDS
     nw, tlanes = _dims(wk)[0], _dims(wk)[4]
     dev = i32.device
+    if dev.type == "cuda":
+        with _launch_lock:
+            BUILDS += 1
     u = u16.to(torch.int64)
     t = i32.to(torch.int64)
     K = u.shape[0]
@@ -659,18 +669,25 @@ def launch_packed_batch_mxu(packs: list, device=None) -> list:
         if supported(p):
             groups.setdefault((max(bucket(p.R), TSUB), p.w), []).append(i)
     launched = []
-    for (r_pad, wk), idxs in groups.items():
-        for lo_i in range(0, len(idxs), BATCH_CHUNK):
-            chunk = idxs[lo_i:lo_i + BATCH_CHUNK]
-            chunk_packs = [packs[i] for i in chunk]
-            k_pad, n_dev = _batch_geometry(len(chunk), len(lanes))
-            i32s, u16s = pack_perop_batch(chunk_packs, r_pad, k_pad)
-            per = k_pad // n_dev
-            outs = [_launch_lane(i32s[d * per:(d + 1) * per],
-                                 u16s[d * per:(d + 1) * per], r_pad, wk,
-                                 lanes[d], streams[d])
-                    for d in range(n_dev)]
-            launched.append((chunk, outs, chunk_packs))
+    tel = telemetry.current()
+    with tel.span("mxu.launch", keys=len(packs)) as sp:
+        for (r_pad, wk), idxs in groups.items():
+            for lo_i in range(0, len(idxs), BATCH_CHUNK):
+                chunk = idxs[lo_i:lo_i + BATCH_CHUNK]
+                chunk_packs = [packs[i] for i in chunk]
+                k_pad, n_dev = _batch_geometry(len(chunk), len(lanes))
+                i32s, u16s = pack_perop_batch(chunk_packs, r_pad, k_pad)
+                per = k_pad // n_dev
+                outs = [_launch_lane(i32s[d * per:(d + 1) * per],
+                                     u16s[d * per:(d + 1) * per], r_pad,
+                                     wk, lanes[d], streams[d])
+                        for d in range(n_dev)]
+                launched.append((chunk, outs, chunk_packs))
+        sp.set(chunks=len(launched),
+               supported=sum(len(v) for v in groups.values()))
+    # one dispatch a (R-bucket, width, chunk), however many lanes it
+    # spans: the reference's count
+    tel.counter("mxu.dispatches", len(launched))
     return launched
 
 
@@ -700,8 +717,14 @@ def check_packed_mxu(p: Packed, device=None) -> dict | None:
     if not supported(p):
         return None
     r_pad = max(bucket(p.R), TSUB)
-    out = _launch_lane(*pack_perop_batch([p], r_pad), r_pad, p.w, dev)
-    return _decode(out.cpu().numpy()[0], p)
+    tel = telemetry.current()
+    with tel.span("mxu.dispatch", ops=p.R, w=p.w) as sp:
+        out = _launch_lane(*pack_perop_batch([p], r_pad), r_pad, p.w, dev)
+        res = _decode(out.cpu().numpy()[0], p)
+        sp.set(valid=res.get("valid?"),
+               peak_frontier=res.get("peak-frontier"))
+    tel.counter("mxu.dispatches")
+    return res
 
 
 def check_packed_batch_mxu(packs: list, device=None) -> list | None:

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import logging
 import time as wall_time
-from typing import Any
+from typing import Any, Optional
 
 from ..core.op import Op
 from ..core.history import History
@@ -48,11 +48,17 @@ def _tally_generate(tel, history, wall_s: float) -> None:
 
 def _make_telemetry(test: dict, store_dir: str):
     """Install the run's telemetry recorder (``--no-telemetry`` opts
-    out; every other run writes telemetry.jsonl with no flag needed)."""
+    out; every other run writes telemetry.jsonl with no flag needed).
+    A campaign-minted ``trace_id``/``trace_parent`` stamps every
+    record, and ``live_sink`` streams them to the campaign's live
+    collector socket (best-effort datagrams)."""
     if test.get("no_telemetry"):
         return None
     import os
-    tel = Telemetry(os.path.join(store_dir, "telemetry.jsonl"))
+    tel = Telemetry(os.path.join(store_dir, "telemetry.jsonl"),
+                    trace=test.get("trace_id"),
+                    parent=test.get("trace_parent"),
+                    sink=test.get("live_sink"))
     telemetry.set_current(tel)
     return tel
 
@@ -234,9 +240,12 @@ def run_test(test: dict) -> dict:
 
 
 def _analyze_and_save(test: dict, history, store_dir: str, cluster,
-                      task_leak, sim_seconds: float, t0: float) -> dict:
+                      task_leak, sim_seconds: float, t0: float,
+                      node_logs: Optional[dict] = None) -> dict:
     """The run's epilogue: checker pass, task-leak / corrupt-check
-    result merge, artifact save, summary line."""
+    result merge, artifact save, summary line. cluster is None for a
+    history the batched generator made (no simulated nodes, no trace);
+    node_logs overrides the cluster-derived logs."""
     logger.info("Analyzing %d ops (history in %s)", len(history), store_dir)
     tel = telemetry.current()
     # service=True means device-bound checks may ship to a shared
@@ -251,7 +260,7 @@ def _analyze_and_save(test: dict, history, store_dir: str, cluster,
     if task_leak is not None:
         results["task-leak"] = {"valid?": False, "error": task_leak}
         results["valid?"] = False
-    if test.get("corrupt_check"):
+    if test.get("corrupt_check") and cluster is not None:
         # definite verdict from the runtime corruption monitor
         # (etcd.clj:164); the fatal alarm log line is independently
         # caught by the crash-pattern checker
@@ -259,11 +268,13 @@ def _analyze_and_save(test: dict, history, store_dir: str, cluster,
         results["corrupt-check"] = {"valid?": not alarms, "alarms": alarms}
         if alarms:
             results["valid?"] = False
-    node_logs = {name: list(node.etcd_log)
-                 for name, node in cluster.nodes.items()}
+    if node_logs is None:
+        node_logs = {} if cluster is None else {
+            name: list(node.etcd_log)
+            for name, node in cluster.nodes.items()}
     # the trace streams during the run; close it and fold its totals
     # into results BEFORE save_run so results.json carries them
-    if cluster.tracer is not None:
+    if cluster is not None and cluster.tracer is not None:
         cluster.tracer.close()
         results["net-trace"] = cluster.tracer.summary()
     if tel.enabled:

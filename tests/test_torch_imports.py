@@ -44,6 +44,11 @@ PORT_MODULES = [
     "jepsen_etcd_tpu_torch.runner.stream",
     "jepsen_etcd_tpu_torch.runner.transport",
     "jepsen_etcd_tpu_torch.runner.checker_service",
+    "jepsen_etcd_tpu_torch.runner.campaign",
+    "jepsen_etcd_tpu_torch.runner.shrink",
+    "jepsen_etcd_tpu_torch.runner.guided",
+    "jepsen_etcd_tpu_torch.runner.host_agent",
+    "jepsen_etcd_tpu_torch.tel_cli",
     "jepsen_etcd_tpu_torch.simbatch",
     "jepsen_etcd_tpu_torch.simbatch.heap",
     "jepsen_etcd_tpu_torch.simbatch.engine",
@@ -133,6 +138,15 @@ def test_port_sources_name_no_jax_import():
                                          "jepsen_etcd_tpu"):
                     offenders.append(f"{path}:{n}: {s}")
     assert not offenders, offenders
+
+
+def test_host_agents_spawn_this_package():
+    """A campaign's ``--hosts`` agents run this package's worker-agent
+    command, never the JAX package's."""
+    from jepsen_etcd_tpu_torch.runner import host_agent
+    argv = host_agent.agent_argv("tcp://127.0.0.1:1", "host1")
+    assert argv[:4] == [sys.executable, "-m", "jepsen_etcd_tpu_torch",
+                        "worker-agent"]
 
 
 @pytest.fixture
