@@ -45,7 +45,14 @@ batched launch, each verdict equal to the native DFS), stale reads
 caught on the native DFS's keys, the watch workload through
 indel_bits (its dict equal to the plain versions' on the CPU) and
 list-append through the closure on the card (held against scipy's
-strongly connected components). Last the campaign runner
+strongly connected components). Then streaming and the set, lock and
+MVCC workloads (``stream_phase``): the BASELINE command with
+``--stream``, held against the runner phase's post-hoc run (history
+bytes, the workload's dict) with every key wgl_wave took checked from a
+streamed pack; the reference's set cell with ``--stream`` and epoch-v3
+set histories generated on the card; lock decided by wgl_wave through
+the Mutex adapter; the MVCC workloads clean and each with its injected
+bug caught. Last the campaign runner
 (``campaign_phase``): the reference's campaign-amortization cell serial,
 over a pool of spawned workers and over the pool with one checker
 service on the card (verdicts held against in-process re-checks, the
@@ -218,6 +225,33 @@ RUNNER_WATCH = {"workload": "watch", "time_limit": 60, "rate": 200,
                 "seed": 0}
 RUNNER_APPEND = {"workload": "append", "time_limit": 10, "rate": 200,
                  "seed": 0}
+#: the stream phase. (a) the runner phase's BASELINE command with
+#: --stream; (b) the reference's set cell (bench.py:554-567: 60 s at 200
+#: ops/s, ~24,000 ops and ~15 M observed values) with --stream, then the
+#: set workload at the generation cell's opts through epoch-v3; (c) lock
+#: with force_kernel (the Mutex adapter to wgl_wave), lock-set and
+#: lock-etcd-set at their defaults; (d) the four MVCC workloads clean
+#: at their defaults, then each with its injection hook through an
+#: epoch-v3 campaign cell at tests/test_mvcc.py:39-46's opts
+STREAM_ARGV = RUNNER_ARGV + ["--stream"]
+SET_ARGV = ["test", "-w", "set", "--time-limit", "60", "--rate", "200",
+            "--seed", "0", "--stream"]
+SET_V3_OPTS = dict(GEN_OPTS, workload="set", gen_epoch="epoch-v3")
+LOCK_RUNS = (("lock", {"force_kernel": True}), ("lock-set", {}),
+             ("lock-etcd-set", {}))
+MVCC_INJECT = {
+    "register-stale": ("staleness", "inject_stale_snapshot",
+                       "stale-beyond-bound"),
+    "ranges": ("ranges", "inject_torn_range", "torn-range"),
+    "lock-lease": ("lease", "inject_double_grant", "double-grant"),
+    "compact-watch": ("watch-mvcc", "inject_compaction_swallow",
+                      "lost-event"),
+}
+MVCC_INJECT_BASE = {"nodes": ["n1", "n2", "n3"], "concurrency": 8,
+                    "rate": 200.0, "time_limit": 2.0,
+                    "gen_epoch": "epoch-v3"}
+#: result keys that read a host clock, dropped before dicts are compared
+WALL_KEYS = ("telemetry", "wall", "seconds")
 #: the campaign phase. (a) the reference's campaign-amortization cell
 #: (bench.py:937-1010): 12 forced-kernel register runs at epoch-v1,
 #: serial, over a pool of 4 spawned workers, and over the pool with one
@@ -2047,14 +2081,8 @@ def runner_phase(card: str, dev) -> dict:
                 fail(f"the test command wrote no {f}")
         # wgl_wave at the run's batch: held against its plain version
         # and timed, one launch per (r_pad, wk) group of the keys it took
-        packs = wgl.pack_register_histories_batched(
-            {k: subs[k] for k in big})
-        groups = {}
-        for k in big:
-            if wgl_mxu.supported(packs[k]):
-                p = packs[k]
-                groups.setdefault((max(wgl.bucket(p.R), wgl_mxu.TSUB), p.w),
-                                  []).append(p)
+        groups = b1_groups(wgl.pack_register_histories_batched(
+            {k: subs[k] for k in big}))
         b1_ms, plain_ms, err, waves, bound = 0.0, 0.0, 0, 0, 0.0
         for gp in groups.values():
             tab, scal, wk = tables_for(gp, dev,
@@ -2099,6 +2127,11 @@ def runner_phase(card: str, dev) -> dict:
         if bad_keys or err:
             fail(f"runner (a): keys {bad_keys} differ from the native "
                  f"DFS, max_abs_err {err}")
+        # the post-hoc twin of the stream phase's streamed run
+        with open(os.path.join(out["dir"], "history.jsonl"), "rb") as f:
+            baseline = {"history": f.read(), "workload": res["workload"],
+                        "b1_ms": b1_ms, "groups": len(groups),
+                        "phases": phases}
 
         # -- (b) stale reads, every key device-bound -----------------------
         torch.cuda.synchronize()
@@ -2190,7 +2223,306 @@ def runner_phase(card: str, dev) -> dict:
             fail(f"runner (d): append {ares}")
     finally:
         shutil.rmtree(store, ignore_errors=True)
-    return {"launches": launches + stale_launches, "max_abs_err": err}
+    return {"launches": launches + stale_launches, "max_abs_err": err,
+            "baseline": baseline}
+
+
+def no_wall(x):
+    """``x`` without the keys that read a host clock (WALL_KEYS)."""
+    if isinstance(x, dict):
+        return {k: no_wall(v) for k, v in x.items()
+                if not any(w in str(k) for w in WALL_KEYS)}
+    if isinstance(x, (list, tuple)):
+        return [no_wall(v) for v in x]
+    return x
+
+
+def same_json(a, b) -> bool:
+    return json.dumps(no_wall(a), sort_keys=True, default=repr) == \
+        json.dumps(no_wall(b), sort_keys=True, default=repr)
+
+
+def b1_groups(packs: dict) -> dict:
+    """The packs wgl_wave takes, by (r_pad, wk) group, as
+    ``launch_packed_batch_mxu`` groups them: one launch each."""
+    from jepsen_etcd_tpu_torch.ops import wgl, wgl_mxu
+    groups = {}
+    for p in packs.values():
+        if wgl_mxu.supported(p):
+            groups.setdefault((max(wgl.bucket(p.R), wgl_mxu.TSUB), p.w),
+                              []).append(p)
+    return groups
+
+
+def b1_batch_ms(packs: dict, dev) -> tuple:
+    """wgl_wave over the keys it takes, one launch per group: device ms
+    (CUDA events, median of 11, summed over groups) and the group
+    count."""
+    from jepsen_etcd_tpu_torch.ops import wgl_mxu
+    groups = b1_groups(packs)
+    ms = 0.0
+    for gp in groups.values():
+        tab, scal, wk = tables_for(gp, dev,
+                                   wgl_mxu._batch_geometry(len(gp), 1)[0])
+        ms += cuda_ms(lambda: wgl_mxu.wave_search(tab, scal, wk), 11)
+    return ms, len(groups)
+
+
+def stream_phase(card: str, dev, baseline: dict) -> dict:
+    """Streaming, the set workload, and the lock and MVCC workloads on
+    the card: (a) the BASELINE command with ``--stream`` through
+    ``cli.main``, held against the runner phase's post-hoc run of the
+    same seed (history bytes, the workload's dict) with every key B1
+    took checked from a streamed pack (``stream.pack_reuse``); (b) the
+    reference's set cell with ``--stream`` (the ``set_scan`` hint
+    installed and used, the dict equal to the same history checked
+    post-hoc), then epoch-v3 set histories generated on the card, each
+    ``SetFull`` verdict held against ``_analyze_reference``; (c) lock
+    with force_kernel decided by wgl_wave through the Mutex adapter (its
+    verdict = the Python DFS's), lock-set and lock-etcd-set; (d) the
+    MVCC workloads clean, then each with its injection hook caught.
+    Returns the launches of wgl_wave (single and batched) and of the
+    draws, and wgl_wave's error on the lock's pack, for the kernels
+    line."""
+    import shutil
+    import tempfile
+    import torch
+    from jepsen_etcd_tpu_torch import cli
+    from jepsen_etcd_tpu_torch.checkers.linearizable import check_history
+    from jepsen_etcd_tpu_torch.checkers.set_full import (
+        SetFull, _analyze_reference, analyze)
+    from jepsen_etcd_tpu_torch.compose import etcd_test
+    from jepsen_etcd_tpu_torch.core.history import History
+    from jepsen_etcd_tpu_torch.models import Mutex
+    from jepsen_etcd_tpu_torch.ops import wgl, wgl_mxu
+    from jepsen_etcd_tpu_torch.runner.campaign import (campaign_specs,
+                                                       run_campaign)
+    from jepsen_etcd_tpu_torch.runner.test_runner import run_test
+    from jepsen_etcd_tpu_torch.simbatch import engine_v3, generate_for_opts
+
+    store = tempfile.mkdtemp(prefix="chip-smoke-stream-")
+    runs = []
+    run_test_cli = cli.run_test
+
+    def keep(test):
+        out = run_test_cli(test)
+        runs.append((test, out))
+        return out
+    cli.run_test = keep
+    try:
+        # -- (a) the BASELINE command, streamed ---------------------------
+        torch.cuda.synchronize()
+        wgl_mxu.LAUNCHES = 0
+        t0 = time.perf_counter()
+        rc = cli.main(STREAM_ARGV + ["--store", store])
+        wall = time.perf_counter() - t0
+        batch_launches = wgl_mxu.LAUNCHES
+        test, out = runs[-1]
+        hints = test.get("_stream") or {}
+        tel = out["results"]["telemetry"]
+        ctr, phases = tel["counters"], tel["phases"]
+        with open(os.path.join(out["dir"], "history.jsonl"), "rb") as f:
+            same_bytes = f.read() == baseline["history"]
+        same_dict = same_json(out["results"]["workload"],
+                              baseline["workload"])
+        took = sorted(str(k) for k, r in
+                      out["results"]["workload"]["results"].items()
+                      if r["linear"].get("engine") == "mxu-wave")
+        reuse = ctr.get("stream.pack_reuse", 0)
+        packs = (hints.get("register_packs") or ({}, 0))[0]
+        b1_ms, n_groups = b1_batch_ms(
+            {k: packs[k] for k in packs if str(k) in took}, dev)
+        print(f"stream (a) on {card}: python -m jepsen_etcd_tpu_torch "
+              f"{' '.join(STREAM_ARGV)}: exit {rc}, valid?="
+              f"{out['valid?']}, {len(out['history'])} ops; hints "
+              f"{sorted(hints)}; stream.chunks {ctr.get('stream.chunks')}, "
+              f"stream.pack_reuse {reuse} (keys wgl_wave took: "
+              f"{len(took)}), stream.backlog_peak "
+              f"{ctr.get('stream.backlog_peak')}; phases generate "
+              f"{phases['generate']:.3f} s, stream-finalize "
+              f"{phases.get('stream-finalize', 0.0):.4f} s, check "
+              f"{phases['check']:.3f} s (post-hoc twin: generate "
+              f"{baseline['phases']['generate']:.3f} s, check "
+              f"{baseline['phases']['check']:.3f} s); wall {wall:.3f} s; "
+              f"wgl_wave launches {batch_launches}, {b1_ms:.3f} ms on the "
+              f"streamed packs ({n_groups} group(s), CUDA events, median "
+              f"of 11; post-hoc {baseline['b1_ms']:.3f} ms); history "
+              f"bytes = post-hoc: {same_bytes}; workload dict = post-hoc: "
+              f"{same_dict}", flush=True)
+        if rc != 0 or out["valid?"] is not True or not same_bytes or \
+                not same_dict:
+            fail(f"stream (a): exit {rc}, valid? {out['valid?']}, bytes "
+                 f"equal {same_bytes}, dict equal {same_dict}")
+        if "register_packs" not in hints or not took or \
+                reuse != len(took):
+            fail(f"stream (a): hints {sorted(hints)}, pack_reuse {reuse} "
+                 f"for {len(took)} keys: the run repacked instead of "
+                 f"reusing the streamed packs")
+        if batch_launches < 1 or not n_groups:
+            fail(f"stream (a): wgl_wave launches {batch_launches}, "
+                 f"{n_groups} group(s)")
+
+        # -- (b) the set cell, streamed; epoch-v3 set ---------------------
+        t0 = time.perf_counter()
+        rc = cli.main(SET_ARGV + ["--store", store])
+        wall = time.perf_counter() - t0
+        test, out = runs[-1]
+        hints = test.pop("_stream", None) or {}
+        tel = out["results"]["telemetry"]
+        ctr, phases = tel["counters"], tel["phases"]
+        streamed = out["results"]["workload"]
+        t0 = time.perf_counter()
+        post = test["checker"].checkers["workload"].check(
+            test, out["history"], {})
+        post_s = time.perf_counter() - t0
+        values = sum(len(o.get("value") or ()) for o in out["history"].ops
+                     if o.get("f") == "read" and o.get("type") == "ok")
+        print(f"stream (b) on {card}: python -m jepsen_etcd_tpu_torch "
+              f"{' '.join(SET_ARGV)}: exit {rc}, valid?={out['valid?']}, "
+              f"{len(out['history'])} ops, {values} observed values; "
+              f"hints {sorted(hints)}, stream.set_scan_reuse "
+              f"{ctr.get('stream.set_scan_reuse')}, stream.chunks "
+              f"{ctr.get('stream.chunks')}; set_full "
+              f"{tel['checkers']['workload']:.4f} s streamed, "
+              f"{post_s:.4f} s post-hoc on "
+              f"the same history; dict = post-hoc: "
+              f"{same_json(streamed, post)}; phases generate "
+              f"{phases['generate']:.3f} s, check {phases['check']:.3f} s; "
+              f"wall {wall:.3f} s", flush=True)
+        if rc != 0 or streamed.get("valid?") is not True or \
+                "set_scan" not in hints or \
+                not ctr.get("stream.set_scan_reuse") or \
+                not same_json(streamed, post):
+            fail(f"stream (b): exit {rc}, hints {sorted(hints)}, dicts "
+                 f"equal {same_json(streamed, post)}")
+        del out, test, post, streamed
+        runs.clear()
+        torch.cuda.synchronize()
+        engine_v3.DRAW_LAUNCHES = 0
+        t0 = time.perf_counter()
+        gen = generate_for_opts(dict(SET_V3_OPTS), range(GEN_SEEDS),
+                                device=dev)
+        gen_s = time.perf_counter() - t0
+        draw_launches = engine_v3.DRAW_LAUNCHES
+        check_s = ref_s = 0.0
+        verdicts, bad = [], []
+        for sd, h in enumerate(gen["histories"]):
+            t0 = time.perf_counter()
+            res = SetFull(linearizable=True).check({}, h)
+            check_s += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            want = _analyze_reference(History(h.ops))
+            ref_s += time.perf_counter() - t0
+            verdicts.append(res["valid?"])
+            if analyze(h) != want:
+                bad.append(sd)
+        print(f"stream (b) epoch-v3 set on {card}: {GEN_SEEDS} seeds at "
+              f"{SET_V3_OPTS}: generated in {gen_s:.3f} s (draws launched "
+              f"{draw_launches} time(s)), {sum(map(len, gen['histories']))} "
+              f"ops; SetFull {check_s:.3f} s in all, _analyze_reference "
+              f"{ref_s:.3f} s; verdicts {sorted(set(map(str, verdicts)))}; "
+              f"seeds whose analysis differs from the reference "
+              f"sweep's: {bad}", flush=True)
+        if gen["epoch"] != "epoch-v3" or draw_launches < 1 or bad or \
+                any(v is not True for v in verdicts):
+            fail(f"stream (b): epoch-v3 set, epoch {gen['epoch']}, draws "
+                 f"{draw_launches}, differing seeds {bad}, verdicts "
+                 f"{verdicts}")
+        del gen
+
+        # -- (c) lock, lock-set, lock-etcd-set ----------------------------
+        single_launches = 0
+        for wl, extra in LOCK_RUNS:
+            torch.cuda.synchronize()
+            wgl_mxu.LAUNCHES = 0
+            t0 = time.perf_counter()
+            out = run_test(etcd_test(dict(extra, workload=wl,
+                                          store_base=store)))
+            lwall = time.perf_counter() - t0
+            n = wgl_mxu.LAUNCHES
+            h = out["history"]
+            res = out["results"]["workload"]
+            if wl == "lock":
+                single_launches += n
+                lin = res["linear"]
+                dfs = check_history(Mutex(False), h)["valid?"]
+                # wgl_wave on the lock's Mutex pack: timed, held against
+                # its plain version
+                tab, scal, wk = tables_for([wgl.pack_mutex_history(h)], dev)
+                lock_ms = cuda_ms(
+                    lambda: wgl_mxu.wave_search(tab, scal, wk), 11)
+                t0 = time.perf_counter()
+                want = wgl_mxu.wave_search_reference(tab, scal, wk)
+                torch.cuda.synchronize()
+                lock_plain_ms = (time.perf_counter() - t0) * 1e3
+                got = wgl_mxu.wave_search(tab, scal, wk)
+                lock_err = int((got.long() - want.long()).abs().max())
+                lock_bound = wgl_bound(
+                    int(want[0, 3]), (tab.shape[2] + scal.shape[2]) * 4, 1,
+                    wk)[0]
+                print(f"stream (c) on {card}: lock, force_kernel, "
+                      f"{len(h)} ops: valid?={out['valid?']} engine="
+                      f"{lin.get('engine')} waves={lin.get('waves')} "
+                      f"peak-frontier={lin.get('peak-frontier')}; "
+                      f"wgl_wave launches {n}, {lock_ms:.3f} ms on the "
+                      f"Mutex pack (CUDA events, median of 11; wk {wk}), "
+                      f"plain {lock_plain_ms:.1f} ms, bound "
+                      f"{lock_bound:.5f} ms, max_abs_err {lock_err}; "
+                      f"Python DFS valid?={dfs}; wall {lwall:.3f} s",
+                      flush=True)
+                if lin.get("engine") != "mxu-wave" or n < 1 or \
+                        lin["valid?"] is not dfs or lock_err:
+                    fail(f"stream (c): lock {lin}, launches {n}, DFS {dfs}, "
+                         f"max_abs_err {lock_err}")
+            else:
+                same = analyze(h) == _analyze_reference(History(h.ops))
+                print(f"stream (c) on {card}: {wl}, {len(h)} ops: "
+                      f"valid?={out['valid?']} (set {res['set']['valid?']}, "
+                      f"lost {res['set']['lost-count']}); analysis = the "
+                      f"reference sweep's: {same}; wall {lwall:.3f} s",
+                      flush=True)
+                if not same or res["set"]["valid?"] is not True:
+                    fail(f"stream (c): {wl} {res['set']}")
+
+        # -- (d) the MVCC workloads, clean and injected --------------------
+        for wl, (key, flag, klass) in MVCC_INJECT.items():
+            t0 = time.perf_counter()
+            rc = cli.main(["test", "-w", wl, "--store", store])
+            mwall = time.perf_counter() - t0
+            test, out = runs[-1]
+            sub = out["results"]["workload"][key]
+            opts = dict(MVCC_INJECT_BASE, **{flag: True})
+            if wl == "register-stale":
+                opts["staleness_bound_s"] = 0.5
+            t0 = time.perf_counter()
+            camp = run_campaign(campaign_specs(opts, [wl], [[]],
+                                               runs_per_cell=2, seed0=0),
+                                pool=0, service=False, store_base=store,
+                                name=f"inject-{wl}", live=False)
+            cwall = time.perf_counter() - t0
+            classes = set()
+            for row in camp["runs"]:
+                with open(os.path.join(row["dir"], "results.json")) as f:
+                    got = json.load(f)["workload"][key]
+                classes |= {v["class"] for v in got.get("violations", ())}
+            print(f"stream (d) on {card}: {wl}: clean {len(out['history'])} "
+                  f"ops, exit {rc}, valid?={out['valid?']} ({key} "
+                  f"{sub['valid?']}), wall {mwall:.3f} s; {flag}: "
+                  f"{len(camp['runs'])} runs of the epoch-v3 cell, "
+                  f"valid?={camp['valid?']}, rows "
+                  f"{[r.get('valid') for r in camp['runs']]}, classes "
+                  f"{sorted(classes)}, wall {cwall:.3f} s", flush=True)
+            if rc != 0 or out["valid?"] is not True or \
+                    camp["valid?"] is not False or classes != {klass} or \
+                    any(r.get("valid") is not False for r in camp["runs"]):
+                fail(f"stream (d): {wl} clean {sub['valid?']}, injected "
+                     f"{camp['valid?']} {sorted(classes)}")
+            runs.clear()
+    finally:
+        cli.run_test = run_test_cli
+        shutil.rmtree(store, ignore_errors=True)
+    return {"batch": batch_launches, "single": single_launches,
+            "draws": draw_launches, "max_abs_err": lock_err}
 
 
 class ComputeApps:
@@ -3028,13 +3360,22 @@ def main() -> None:
     batch_entries[0]["max_abs_err"] = max(batch_entries[0]["max_abs_err"],
                                           runner["max_abs_err"])
 
-    # -- 12. the campaign runner ----------------------------------------
+    # -- 12. stream, set, lock and MVCC -----------------------------------
     marks.append((12, time.perf_counter()))
+    streamed = stream_phase(card, torch.device("cuda", 0),
+                            runner["baseline"])
+    launches += streamed["single"]
+    max_err = max(max_err, streamed["max_abs_err"])
+    batch_entries[0]["launches"] += streamed["batch"]
+
+    # -- 13. the campaign runner ----------------------------------------
+    marks.append((13, time.perf_counter()))
     camp = campaign_phase(card, torch.device("cuda", 0))
     batch_entries[0]["launches"] += camp["wgl_wave"]
     for e in sim_entries:
         e["launches"] += {"drain_register": camp["drain"],
-                          "threefry_draws": camp["draws"]}[e["name"]]
+                          "threefry_draws": camp["draws"]
+                          + streamed["draws"]}[e["name"]]
 
     marks.append((None, time.perf_counter()))
     print("section seconds on " + card + ": " + ", ".join(

@@ -13,7 +13,8 @@ per key group, spread over the visible cards.
 from __future__ import annotations
 
 from ..core.history import History
-from .core import Checker, _merge_valid
+from ..runner import telemetry
+from .core import Checker, _merge_valid, stream_hint
 
 
 class Independent(Checker):
@@ -22,10 +23,22 @@ class Independent(Checker):
 
     def check(self, test, history, opts=None) -> dict:
         h = history if isinstance(history, History) else History(history)
+        # streaming reuse: the feed's per-key register packs were
+        # extracted from this exact op stream (row-count + columns
+        # guard in stream_hint). Validated HERE — the only place the
+        # parent history is visible — and handed down via opts so the
+        # batch checker can skip its own pack pass key-for-key.
+        packs = stream_hint(test, h, "register_packs")
+        if packs is not None:
+            opts = dict(opts or {})
+            opts["_stream_packs"] = packs
         # one pass over the parent history builds every per-key
         # subhistory; column-backed histories split as array slices and
         # stay column-backed into the batched packer
         subs = h.split_by_key()
+        # the run's key fanout: how many per-key checks this split
+        # produced
+        telemetry.current().counter("independent.keys", len(subs))
         if hasattr(self.inner, "check_batch"):
             results = self.inner.check_batch(test, subs, opts)
         else:

@@ -333,9 +333,21 @@ class TPULinearizableChecker(Checker):
                                           _band=bands[k])
                             for k in big_keys})
             return results
-        with telemetry.current().span("wgl.pack-batch",
-                                      keys=len(big_keys)):
-            packed = pack_batch({k: subhistories[k] for k in big_keys})
+        packs_hint = (opts or {}).get("_stream_packs")
+        if packs_hint is not None and \
+                all(k in packs_hint for k in big_keys):
+            # streaming reuse: the feed already packed every key from
+            # the same op stream (per-key packs are independent of the
+            # batch they were packed in, so this subset is exactly what
+            # pack_batch would have produced)
+            telemetry.current().counter("stream.pack_reuse",
+                                        len(big_keys))
+            packed = {k: packs_hint[k] for k in big_keys}
+        else:
+            with telemetry.current().span("wgl.pack-batch",
+                                          keys=len(big_keys)):
+                packed = pack_batch({k: subhistories[k]
+                                     for k in big_keys})
         packs = [packed[k] for k in big_keys]
         # campaign mode: the checker service coalesces these packs with
         # every other run's into one dispatch per group per tick

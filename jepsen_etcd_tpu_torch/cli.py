@@ -9,10 +9,11 @@ batched checker service (``runner/checker_service.py``) until
 interrupted; replay re-executes a minimized repro (``shrink.json``);
 worker-agent is one campaign host agent; tel mines telemetry artifacts.
 The checkers run on ``--device`` (default ``cuda``); ``--device cpu``
-runs the kernels' plain PyTorch versions. The live side
-(``--client-type http|grpc``, ``--db local|live``, ``--soak``),
-``--stream`` and the serve, store and gateway commands are not ported
-yet (ROADMAP A).
+runs the kernels' plain PyTorch versions. ``--stream`` checks online
+while the run generates (runner/stream.py). The live side
+(``--client-type http|grpc``, ``--db local|live``, ``--soak``) and the
+serve, store and gateway commands are not ported yet (ROADMAP A
+item 8).
 """
 
 from __future__ import annotations
@@ -100,6 +101,23 @@ def build_parser() -> argparse.ArgumentParser:
                             "inside an open partition window (the "
                             "guided-campaign target); with none, "
                             "unconditionally")
+        s.add_argument("--stream", action="store_true",
+                       help="online chunked checking: feed recorded op "
+                            "columns to checker front-ends while "
+                            "generation runs; verdicts stay "
+                            "bit-identical to post-hoc")
+        s.add_argument("--stream-chunk-ops", type=int, default=1024,
+                       help="recorded ops per streamed chunk "
+                            "(default 1024)")
+        s.add_argument("--staleness-bound-s", type=float, default=None,
+                       help="register-stale: max excusable read lag in "
+                            "virtual seconds (default 8.0)")
+        s.add_argument("--lease-ttl-ms", type=float, default=None,
+                       help="lock-lease: lease TTL clipping certain-"
+                            "hold windows (default 1500)")
+        s.add_argument("--compact-keep", type=int, default=None,
+                       help="compact-watch: revisions kept behind the "
+                            "compaction watermark (default 8)")
         s.add_argument("--only-workloads-expected-to-pass",
                        action="store_true")
         s.add_argument("--store", default="store")
@@ -148,7 +166,8 @@ def build_parser() -> argparse.ArgumentParser:
                            "with their draws and drain on --device "
                            "(MVCC workloads delegate to the epoch-v2 "
                            "sweep); runs the batched generator cannot "
-                           "serve (unsupported workloads) fall back to "
+                           "serve (unsupported workloads, --stream) "
+                           "fall back to "
                            "epoch-v1, and every campaign.json row "
                            "records the epoch that actually produced it")
     camp.add_argument("--hosts", type=int, default=0,
@@ -334,6 +353,14 @@ def opts_from_args(args) -> dict:
         "soak_window_s": getattr(args, "soak_window_s", None),
         "soak_net_faults": getattr(args, "soak_net_fault", None) or [],
         "store_base": args.store,
+        # MVCC surface thresholds: only carried when given, so
+        # compose.default_opts keeps supplying the reference values
+        **{k: v for k, v in (
+            ("staleness_bound_s", getattr(args, "staleness_bound_s",
+                                          None)),
+            ("lease_ttl_ms", getattr(args, "lease_ttl_ms", None)),
+            ("compact_keep", getattr(args, "compact_keep", None)),
+        ) if v is not None},
         "device": args.device,
     }
 

@@ -8,8 +8,8 @@ The port runs the simulated cluster only. ``opts["device"]`` names the
 device the checkers run on: None (the default) is the card, and with no
 card composing the test raises; ``"cpu"`` runs the kernels' plain
 PyTorch versions. ``default_opts`` carries every option of the
-reference's; those of the live side, ``stream`` and the lock and MVCC
-workloads raise when set (``_refuse_later_slices``).
+reference's; those of the live side raise when set
+(``_refuse_later_slices``).
 """
 
 from __future__ import annotations
@@ -63,7 +63,7 @@ def default_opts() -> dict:
                                         # unless opted out (--no-telemetry)
         "stream": False,                # --stream: online chunked checking
                                         # overlapped with generation
-                                        # (ROADMAP A items 4 and 6)
+                                        # (runner/stream.py)
         "stream_chunk_ops": 1024,       # ops per streamed chunk
         "key_offset": 0,                # first register key id (soak
                                         # windows rotate it so a retained
@@ -150,19 +150,12 @@ def default_opts() -> dict:
 
 
 #: options whose machinery is still missing in the port -> the ROADMAP
-#: item that brings it; a value other than the default raises. The MVCC
-#: hooks and thresholds only reach the lock and MVCC workloads' machines
-#: and checkers, which the port's registry does not offer yet
+#: item that brings it; a value other than the default raises
 _LATER_SLICE_OPTS = {
     "soak_windows": "A item 8", "soak_window_s": "A item 8",
     "soak_net_faults": "A item 8", "net_proxy": "A item 8",
     "etcd_binary": "A item 8", "etcd_data_dir": "A item 8",
     "etcd_env": "A item 8",
-    "inject_stale_snapshot": "A item 6", "inject_torn_range": "A item 6",
-    "inject_double_grant": "A item 6",
-    "inject_compaction_swallow": "A item 6",
-    "staleness_bound_s": "A item 6", "lease_ttl_ms": "A item 6",
-    "compact_keep": "A item 6",
 }
 
 
@@ -183,10 +176,6 @@ def _refuse_later_slices(o: dict) -> None:
         raise ValueError(
             "soak mode checks a long-lived live cluster; the port's "
             "live side is not there yet (ROADMAP A item 8)")
-    if o.get("stream"):
-        raise ValueError(
-            "--stream needs StreamFeed and set_full.ColumnScan, which "
-            "the port does not have yet (ROADMAP A items 4 and 6)")
     defaults = default_opts()
     for key, item in _LATER_SLICE_OPTS.items():
         if key in o and o[key] != defaults[key]:

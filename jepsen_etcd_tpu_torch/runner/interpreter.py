@@ -40,6 +40,7 @@ async def interpret(
     nemesis_invoke: Optional[Callable] = None,  # async (op) -> completed Op
     loop: Optional[SimLoop] = None,
     on_op: Optional[Callable] = None,  # observer: called with each recorded op
+    stream: Optional[Any] = None,  # runner.stream.StreamFeed (chunk drain)
 ) -> History:
     """Run a generator to exhaustion; returns the recorded history."""
     loop = loop or current_loop()
@@ -59,6 +60,11 @@ async def interpret(
     # (core/history.py OpColumns; schema in OBSERVABILITY.md §columns)
     columns = ColumnsBuilder()
     col_append = columns.append
+    # streaming check feed: the builder hands chunks to a checker
+    # worker while generation proceeds (runner/stream.py)
+    if stream is not None:
+        stream.attach(columns)
+    stream_tick = stream.on_record if stream is not None else None
 
     def record(op: Op) -> Op:
         op = Op(op)  # evolve() unrolled: one copy, two direct stores
@@ -67,6 +73,8 @@ async def interpret(
         index[0] += 1
         history.append(op)
         col_append(op)
+        if stream_tick is not None:
+            stream_tick()
         if on_op is not None:
             on_op(op)
         return op

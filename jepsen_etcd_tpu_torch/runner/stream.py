@@ -1,6 +1,29 @@
-"""The fused gen->check pipeline (the port of the reference's
-``runner/stream.py``: ``_slice_columns``, ``DEFAULT_CHUNK_OPS`` and
-``FusedPipeline``; ``StreamFeed`` is not ported yet).
+"""Streaming online checking (the port of the reference's
+``runner/stream.py``): feed recorded op columns to checker front-ends
+while generation is still running, and the fused gen->check pipeline.
+
+``StreamFeed`` attaches to the interpreter's ``ColumnsBuilder`` and,
+every ``chunk_ops`` recorded events, drains a columnar chunk
+(``take_chunk``) onto a worker thread that advances per-workload
+incremental consumers — the resumable register pack extractor
+(``ops.wgl.PackStream``) and the set scan (``checkers.set_full.
+ColumnScan``). When the run ends, ``finish()`` finalizes the consumers
+and installs their artifacts as reuse hints on ``test["_stream"]``.
+
+Bit-identity contract: streaming consumers only ever produce REUSE
+HINTS — precomputed artifacts the post-hoc checkers validate (row
+count against the final history, key coverage) and then consume in
+place of their own scan/pack pass. Every decision phase runs the exact
+post-hoc code, so verdicts are bit-identical with hints present,
+absent, or half-fed; a consumer that trips on a malformed stream
+simply withdraws its hint and the checker recomputes from scratch.
+The consumers are host code; the register packs they hand over go to
+the wave kernel on the checker's device as post-hoc packs would.
+
+Overlap: the simulator's generator loop is CPU-bound Python, so under
+the GIL a streamed consumer mostly interleaves with generation instead
+of running beside it. What streaming buys is ``phase:check`` without
+its scan/pack pass: the artifacts are ready the moment generation ends.
 
 ``FusedPipeline`` is the device-resident leg: the epoch-v3 generator
 (simbatch/engine_v3.py) produces seed sub-batches while a consumer
@@ -25,6 +48,188 @@ from . import telemetry
 logger = logging.getLogger("jepsen_etcd_tpu_torch.run")
 
 DEFAULT_CHUNK_OPS = 1024
+
+#: join bound for the worker at finish; a wedged consumer must not
+#: hang the run — the feed just withdraws its hints past this
+JOIN_TIMEOUT_S = 300.0
+
+
+class StreamFeed:
+    """One run's streaming pipeline: chunk pump + consumer worker."""
+
+    def __init__(self, test: dict, chunk_ops: int = DEFAULT_CHUNK_OPS):
+        self.test = test
+        self.chunk_ops = max(1, int(chunk_ops or DEFAULT_CHUNK_OPS))
+        self.columns = None           # the interpreter's ColumnsBuilder
+        self._since = 0               # ops recorded since last flush
+        self._q: deque = deque()
+        self._cv = threading.Condition()
+        self._thread: Optional[threading.Thread] = None
+        self._closed = False
+        self.chunks = 0
+        self.rows = 0                 # rows consumed by the worker
+        self.backlog_peak = 0
+        self.error: Optional[BaseException] = None
+        # set under _cv when finish() gives up on a wedged worker; the
+        # worker must not install finalize results past this point
+        self._abandoned = False
+        # per-workload consumers, created lazily on the worker thread
+        wl = test.get("workload") if isinstance(test, dict) else None
+        self._want_pack = wl == "register"
+        self._want_scan = wl == "set"
+        self._pack = None             # ops.wgl.PackStream
+        self._scan = None             # checkers.set_full.ColumnScan
+        self._pack_result = None
+        self._scan_result = None
+
+    # -- producer side (interpreter loop) ------------------------------------
+
+    def attach(self, columns: Any) -> None:
+        """Bind the interpreter's ColumnsBuilder and start the worker."""
+        self.columns = columns
+        if self._thread is None:
+            self._thread = threading.Thread(
+                target=self._worker, name="stream-checker", daemon=True)
+            self._thread.start()
+
+    def on_record(self) -> None:
+        """Per-op tick from the interpreter's record(); flushes a chunk
+        every ``chunk_ops`` events. O(1) between flushes."""
+        self._since += 1
+        if self._since >= self.chunk_ops:
+            self._since = 0
+            self._flush()
+
+    def _flush(self) -> None:
+        if self.columns is None:
+            return
+        cols = self.columns.take_chunk()
+        if cols is None or len(cols) == 0:
+            return
+        with self._cv:
+            # enqueue stamp feeds the stream.chunk_lag_s histogram
+            # (host wall time only — never reaches history/verdict)
+            self._q.append((cols, time.monotonic()))
+            if len(self._q) > self.backlog_peak:
+                self.backlog_peak = len(self._q)
+            self._cv.notify()
+
+    # -- consumer side (worker thread) ---------------------------------------
+
+    def _worker(self) -> None:
+        while True:
+            with self._cv:
+                while not self._q and not self._closed:
+                    self._cv.wait()
+                if not self._q and self._closed:
+                    break
+                cols, t_enq = self._q.popleft()
+            lag = time.monotonic() - t_enq
+            telemetry.current().hist("stream.chunk_lag_s", lag)
+            try:
+                self._consume(cols)
+            except BaseException as e:  # withdraw hints, never crash a run
+                logger.warning("stream consumer failed; hints withdrawn",
+                               exc_info=True)
+                with self._cv:
+                    self.error = e
+                    self._pack = self._scan = None
+                    self._want_pack = self._want_scan = False
+        try:
+            self._finalize_consumers()
+        except BaseException as e:
+            logger.warning("stream finalize failed; hints withdrawn",
+                           exc_info=True)
+            with self._cv:
+                self.error = e
+                self._pack_result = self._scan_result = None
+
+    def _consume(self, cols: Any) -> None:
+        tel = telemetry.current()
+        with tel.span("stream.chunk", rows=len(cols)):
+            if self._want_pack:
+                if self._pack is None:
+                    from ..ops.wgl import PackStream
+                    with self._cv:
+                        self._pack = PackStream()
+                self._pack.feed(cols)
+            if self._want_scan:
+                if self._scan is None:
+                    from ..checkers.set_full import ColumnScan
+                    with self._cv:
+                        self._scan = ColumnScan()
+                try:
+                    self._scan.feed(cols)
+                except Exception:  # _NonColumnar rows: scan withdrawn
+                    with self._cv:
+                        self._scan = None
+                        self._want_scan = False
+        with self._cv:
+            self.chunks += 1
+            self.rows += len(cols)
+        tel.counter("stream.chunks")
+        tel.counter("stream.flushed_events", len(cols))
+
+    def _finalize_consumers(self) -> None:
+        tel = telemetry.current()
+        pack_result = scan_result = None
+        if self._pack is not None:
+            with tel.span("stream.finalize", kind="register-pack"):
+                pack_result = self._pack.finish()  # None if bad
+        if self._scan is not None:
+            with tel.span("stream.finalize", kind="set-scan"):
+                scan_result = self._scan.finish()
+        # a worker that wedged past finish()'s join bound must not
+        # install results the run already declared withdrawn
+        with self._cv:
+            if not self._abandoned:
+                self._pack_result = pack_result
+                self._scan_result = scan_result
+
+    # -- epilogue (runner, after generation) ---------------------------------
+
+    def finish(self, history: Any) -> dict:
+        """Drain the tail, join the worker, validate, and install the
+        hint map as ``test["_stream"]``. Returns the hint map."""
+        self._flush()
+        with self._cv:
+            self._closed = True
+            self._cv.notify()
+        if self._thread is not None:
+            self._thread.join(timeout=JOIN_TIMEOUT_S)
+            if self._thread.is_alive():
+                logger.warning("stream worker did not drain in %.0fs; "
+                               "hints withdrawn", JOIN_TIMEOUT_S)
+                with self._cv:
+                    self._abandoned = True
+                    self._pack_result = self._scan_result = None
+        tel = telemetry.current()
+        # snapshot under the lock: a worker alive past the join bound
+        # must not mutate what this epilogue publishes
+        with self._cv:
+            error = self.error
+            chunks, rows = self.chunks, self.rows
+            pack_result = self._pack_result
+            scan_result = self._scan_result
+        tel.counter("stream.backlog_peak", self.backlog_peak, mode="max")
+        hints: dict = {"stats": {"chunks": chunks,
+                                 "rows": rows,
+                                 "backlog_peak": self.backlog_peak,
+                                 "chunk_ops": self.chunk_ops}}
+        # hints are only safe when the worker consumed the WHOLE
+        # recorded stream — a partial feed (error, wedged worker) must
+        # not masquerade as the full history's artifacts
+        if error is None and rows == len(history):
+            if pack_result is not None:
+                hints["register_packs"] = (pack_result, rows)
+            if scan_result is not None:
+                hints["set_scan"] = (scan_result, rows)
+        self.test["_stream"] = hints
+        return hints
+
+
+# ---------------------------------------------------------------------------
+# fused gen->check pipeline (device-resident leg)
 
 
 def _slice_columns(cols: Any, lo: int, hi: int) -> Any:

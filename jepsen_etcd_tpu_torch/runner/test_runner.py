@@ -4,9 +4,10 @@ Sequence (SURVEY §3.1): DB setup on every node -> client open/setup per
 worker -> generator interpretation (concurrent invokes + nemesis) ->
 teardown -> checker.check over the recorded history -> artifacts.
 
-The port runs the simulated cluster only: the reference's live runner
-(``run_test_live``), its soak windows (``run_soak``) and the streaming
-feed (``--stream``) come with later slices (ROADMAP A items 4, 6, 8).
+The port runs the simulated cluster only, with or without the streaming
+check feed (``--stream``, runner/stream.py). The reference's live runner
+(``run_test_live``) and its soak windows (``run_soak``) come with a later
+slice (ROADMAP A item 8).
 """
 
 from __future__ import annotations
@@ -61,6 +62,29 @@ def _make_telemetry(test: dict, store_dir: str):
                     sink=test.get("live_sink"))
     telemetry.set_current(tel)
     return tel
+
+
+def _make_stream(test: dict):
+    """The run's streaming check feed (``--stream``), or None. Always
+    clears a stale ``_stream`` hint map first: hints are one run's
+    artifacts and must never leak into a re-used test dict."""
+    test.pop("_stream", None)
+    if not test.get("stream"):
+        return None
+    from .stream import StreamFeed
+    return StreamFeed(test, chunk_ops=test.get("stream_chunk_ops") or 0)
+
+
+def _finish_stream(stream, history) -> None:
+    """Drain + join the feed and install its reuse hints; its own span
+    so run reports separate residual finalize cost from phase:check."""
+    if stream is None:
+        return
+    with telemetry.current().span("phase:stream-finalize",
+                                  ops=len(history)) as sp:
+        hints = stream.finish(history)
+        sp.set(chunks=stream.chunks,
+               hints=sorted(k for k in hints if k != "stats"))
 
 
 class ClientPool:
@@ -171,6 +195,7 @@ def run_test(test: dict) -> dict:
         db = test["db"]
         pool = ClientPool(test)
         nemesis_obj = test.get("nemesis")
+        stream = _make_stream(test)
 
         async def invoke(process: int, op: Op) -> Op:
             client = pool.client_for(process)
@@ -194,7 +219,8 @@ def run_test(test: dict) -> dict:
             with tel_now.span("phase:generate") as sp:
                 h = await interpret(test, test["generator"], invoke,
                                     test["concurrency"],
-                                    nemesis_invoke=nemesis_invoke)
+                                    nemesis_invoke=nemesis_invoke,
+                                    stream=stream)
                 sp.set(ops=len(h))
             _tally_generate(tel_now, h, wall_time.time() - g0)
             with tel_now.span("phase:teardown"):
@@ -212,6 +238,7 @@ def run_test(test: dict) -> dict:
             return h
 
         history = loop.run_coro(main())
+        _finish_stream(stream, history)
         sim_seconds = loop.now / 1e9
         # leak scan AFTER the run, recorded into results rather than
         # thrown — a leak must not destroy the run's artifacts (they're

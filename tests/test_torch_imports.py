@@ -19,11 +19,14 @@ PORT_MODULES = [
     "jepsen_etcd_tpu_torch.core",
     "jepsen_etcd_tpu_torch.core.op",
     "jepsen_etcd_tpu_torch.core.history",
+    "jepsen_etcd_tpu_torch.core.mvcc",
     "jepsen_etcd_tpu_torch.models",
     "jepsen_etcd_tpu_torch.checkers",
     "jepsen_etcd_tpu_torch.checkers.core",
     "jepsen_etcd_tpu_torch.checkers.independent",
     "jepsen_etcd_tpu_torch.checkers.linearizable",
+    "jepsen_etcd_tpu_torch.checkers.mvcc",
+    "jepsen_etcd_tpu_torch.checkers.set_full",
     "jepsen_etcd_tpu_torch.checkers.session",
     "jepsen_etcd_tpu_torch.checkers.tpu_linearizable",
     "jepsen_etcd_tpu_torch.checkers.watch",
@@ -82,6 +85,9 @@ PORT_MODULES = [
     "jepsen_etcd_tpu_torch.workloads.watch",
     "jepsen_etcd_tpu_torch.workloads.append",
     "jepsen_etcd_tpu_torch.workloads.wr",
+    "jepsen_etcd_tpu_torch.workloads.set",
+    "jepsen_etcd_tpu_torch.workloads.lock",
+    "jepsen_etcd_tpu_torch.workloads.mvcc",
     "jepsen_etcd_tpu_torch.compose",
     "jepsen_etcd_tpu_torch.cli",
     "jepsen_etcd_tpu_torch.ops",
@@ -177,6 +183,38 @@ def _watch_history():
                     for p in (0, 1) for t in ("invoke", "ok")])
 
 
+def _mutex_history():
+    from jepsen_etcd_tpu_torch.core.history import History
+    from jepsen_etcd_tpu_torch.core.op import Op
+    return History([Op(type=t, process=p, f=f, value=None)
+                    for p, f in ((0, "acquire"), (0, "release"),
+                                 (1, "acquire"))
+                    for t in ("invoke", "ok")])
+
+
+def _streamed_check(h, dev):
+    """A register check handed a streamed pack hint: it runs where the
+    checker's device says, as a post-hoc check does."""
+    from jepsen_etcd_tpu_torch.checkers.independent import Independent
+    from jepsen_etcd_tpu_torch.checkers.tpu_linearizable import \
+        TPULinearizableChecker
+    from jepsen_etcd_tpu_torch.core.history import History
+    from jepsen_etcd_tpu_torch.ops import wgl
+    from jepsen_etcd_tpu_torch.testing import keyed
+    kh = History(keyed(h, "k", 0) + keyed(h, "j", 10))
+    kh = History(kh.ops, columns=_columns(kh))
+    packs = wgl.pack_register_histories_batched(kh.split_by_key())
+    test = {"_stream": {"stats": {}, "register_packs": (packs, len(kh))}}
+    return Independent(TPULinearizableChecker(
+        cpu_cutoff=None, device=dev)).check(test, kh)
+
+
+def _columns(h):
+    from jepsen_etcd_tpu_torch.core.history import columns_of
+    return columns_of([dict(o, index=i, time=i)
+                       for i, o in enumerate(h.ops)])
+
+
 def _launch(p, dev):
     from jepsen_etcd_tpu_torch.ops import wgl_mxu
     outs = [None]
@@ -197,7 +235,8 @@ def _launch(p, dev):
                                    "rw_register_checker", "generate_jax",
                                    "generate_for_opts_v3",
                                    "default_schedule_jax",
-                                   "fused_pipeline"])
+                                   "fused_pipeline", "lock_checker",
+                                   "stream_check_batch"])
 def test_entry_points_raise_without_cuda_unless_cpu(no_cuda, entry):
     from jepsen_etcd_tpu_torch.checkers.independent import Independent
     from jepsen_etcd_tpu_torch.checkers.tpu_linearizable import \
@@ -216,6 +255,7 @@ def test_entry_points_raise_without_cuda_unless_cpu(no_cuda, entry):
                                                 generate_jax)
     from jepsen_etcd_tpu_torch.testing import (gen_append_history,
                                                gen_wr_history, keyed)
+    from jepsen_etcd_tpu_torch.workloads import workloads
     h, p = _tiny_pack()
     sim = {"workload": "register", "concurrency": 4, "rate": 100.0,
            "time_limit": 0.2, "nemesis": ["kill"]}
@@ -268,6 +308,10 @@ def test_entry_points_raise_without_cuda_unless_cpu(no_cuda, entry):
                                  device=dev)) > 0},
         "fused_pipeline": lambda dev: {"valid?": FusedPipeline(
             sim, device=dev).run([1])["verdicts"] == {1: True}},
+        "lock_checker": lambda dev: workloads()["lock"](
+            {"device": dev, "force_kernel": True})["checker"].check(
+                {}, _mutex_history()),
+        "stream_check_batch": lambda dev: _streamed_check(h, dev),
     }[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call(None)

@@ -173,16 +173,20 @@ def test_same_seed_same_history(tmp_path):
 
 
 def test_workload_registry_is_the_ported_subset():
+    """Since the set, lock and MVCC workloads came over, the ported
+    subset is the whole of the reference's registry."""
     names = set(workloads())
-    assert names == {"append", "none", "register", "watch", "wr"}
-    assert names <= set(ref_workloads())
-    assert ALL_WORKLOADS == [w for w in REF_ALL if w in names]
+    assert names == set(ref_workloads()) and len(names) == 13
+    assert ALL_WORKLOADS == [w for w in REF_ALL if w in names] == REF_ALL
     assert WORKLOADS_EXPECTED_TO_PASS == [w for w in REF_PASS
-                                          if w in names]
+                                          if w in names] == REF_PASS
 
 
 @pytest.mark.parametrize("workload", ["register", "none", "watch",
-                                      "append", "wr"])
+                                      "append", "wr", "set", "lock",
+                                      "lock-lease", "lock-set",
+                                      "lock-etcd-set", "register-stale",
+                                      "ranges", "compact-watch"])
 def test_no_card_raises_unless_cpu(monkeypatch, workload):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for device in (None, "cuda"):
@@ -198,7 +202,7 @@ def test_no_card_raises_unless_cpu(monkeypatch, workload):
     ({"db_mode": "local"}, "item 8"),
     ({"db_mode": "live"}, "item 8"),
     ({"soak": True}, "item 8"),
-    ({"stream": True}, "items 4 and 6"),
+    ({"net_proxy": True}, "item 8"),
 ])
 def test_later_slices_raise_naming_their_item(opts, item):
     with pytest.raises(ValueError, match=f"ROADMAP A {item}"):

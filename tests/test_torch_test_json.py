@@ -78,14 +78,6 @@ def test_defaults_carry_the_references_and_never_raise():
     ("etcd_binary", "fake", "A item 8"),
     ("etcd_data_dir", "/nonexistent", "A item 8"),
     ("etcd_env", {"X": "1"}, "A item 8"),
-    ("stream", True, "A items 4 and 6"),
-    ("inject_stale_snapshot", True, "A item 6"),
-    ("inject_torn_range", True, "A item 6"),
-    ("inject_double_grant", True, "A item 6"),
-    ("inject_compaction_swallow", True, "A item 6"),
-    ("staleness_bound_s", 2.0, "A item 6"),
-    ("lease_ttl_ms", 500, "A item 6"),
-    ("compact_keep", 2, "A item 6"),
 ])
 def test_later_slice_options_raise_naming_their_item(key, value, item):
     with pytest.raises(ValueError, match=f"ROADMAP {item}"):
