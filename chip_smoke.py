@@ -61,7 +61,13 @@ from nvidia-smi), the same runs over two worker-agent processes on
 loopback TCP (the cross-host ledger), an epoch-v3 campaign generated on
 the card (histories held against ``generate_for_opts``), and guided
 search, shrink and ``replay`` on the card (held against the same search
-on the CPU). The frame tables (``build_tables``, held against the host
+on the CPU). Last the live side (``live_phase``): the register workload
+at BASELINE's widths over the etcd v3 JSON wire against the port's
+gateway, then over native gRPC, then on the local control plane's
+fake-etcd node under a kill nemesis and in three soak windows, every
+key through wgl_wave's batched launch and held against the native DFS,
+each run's dict against its stored history checked with the plain
+versions on the CPU, a corrupted read refuted. The frame tables (``build_tables``, held against the host
 packer) and the unsharded ladder rung (CUDA graphs held against the
 same ops issued one by one) are timed at the register and
 ladder-at-real-size cells. Prints the card's name and power limit, a
@@ -278,6 +284,33 @@ PROJECTION = ("valid?", "waves", "peak-frontier", "ops", "info-ops",
 #: ops, the predecessor bit (a compare, an and, a shift, an or)
 FRAME_OPS_PER_SLOT = 27
 FRAME_OPS_PER_PAIR = 4
+#: the live phase: (a) the register workload over the etcd v3 JSON wire
+#: at BASELINE's widths, against five in-process gateway endpoints over
+#: one shared MVCC store (BASELINE's five nodes): 20 threads (its -c 4n),
+#: so 10 threads a key, 2,000 ops a key and the reference's default 200
+#: ops/s for 30 s; (b) the same over native gRPC for 10 s; (c) the local
+#: control plane on one fake-etcd node with a kill nemesis every 2 s,
+#: 10 s at 50 ops/s on 4 threads (tests/test_local_db.py:316-366); (d)
+#: three 2 s soak windows on one such node (tests/test_stream.py:327-
+#: 360). Every key goes to wgl_wave's batched launch (force_kernel: a
+#: key's ~4,000 entries are below DFS_FIRST_MAX)
+LIVE_OPTS = {"workload": "register", "concurrency": 20,
+             "ops_per_key": 2000, "rate": 200.0, "time_limit": 30,
+             "force_kernel": True}
+LIVE_GRPC_TIME_LIMIT = 10
+LIVE_ENDPOINTS = 5
+LOCAL_OPTS = {"workload": "register", "client_type": "http",
+              "db_mode": "local", "etcd_binary": "fake", "nodes": ["n1"],
+              "nemesis": ["kill"], "nemesis_interval": 2, "time_limit": 10,
+              "rate": 50.0, "concurrency": 4, "force_kernel": True}
+SOAK_OPTS = {"workload": "register", "client_type": "http",
+             "db_mode": "local", "etcd_binary": "fake", "nodes": ["n1"],
+             "rate": 150.0, "ops_per_key": 20, "seed": 3,
+             "soak_windows": 3, "soak_window_s": 2, "force_kernel": True}
+#: fake-etcd nodes spawned cold (and each restarted once) to time a spawn
+LIVE_SPAWNS = 3
+#: the value a corrupted read claims: the register workload writes 0-4
+NEVER_WRITTEN = 424_242
 
 
 def fail(msg: str) -> None:
@@ -2822,6 +2855,328 @@ def campaign_phase(card: str, dev) -> dict:
     return launches
 
 
+def corrupt_read(text: str, keys) -> tuple:
+    """``text`` (a history.jsonl) with its first ok read of a written
+    value on one of ``keys`` changed to a value never written, and that
+    read's key."""
+    lines = text.splitlines()
+    for i, line in enumerate(lines):
+        op = json.loads(line)
+        v = op.get("value")
+        if op.get("f") == "read" and op.get("type") == "ok" and \
+                isinstance(v, dict) and v["__tuple__"][0] in keys and \
+                v["__tuple__"][1][1] is not None:
+            v["__tuple__"][1][1] = NEVER_WRITTEN
+            lines[i] = json.dumps(op)
+            return "\n".join(lines) + "\n", v["__tuple__"][0]
+    fail(f"no ok read of a written value on keys {sorted(keys)} to "
+         f"corrupt")
+
+
+def pids_with(token: str) -> list:
+    """Live processes whose command line names ``token`` (a run's data
+    dir), this one aside."""
+    pids = []
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit() or int(pid) == os.getpid():
+            continue
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                if token in f.read().decode("utf-8", "replace"):
+                    pids.append(int(pid))
+        except OSError:
+            continue
+    return pids
+
+
+def fake_spawn_seconds(root: str, n: int) -> tuple:
+    """Seconds from spawning a fake-etcd node to its first status with a
+    leader: ``n`` cold starts and ``n`` restarts after a SIGKILL."""
+    from jepsen_etcd_tpu_torch.db.local import LocalDb
+    from jepsen_etcd_tpu_torch.runner.sim import set_current_loop
+    from jepsen_etcd_tpu_torch.runner.wall import WallLoop
+    cold, restart = [], []
+    for i in range(n):
+        db = LocalDb({"etcd_binary": "fake", "client_type": "http",
+                      "etcd_data_dir": os.path.join(root, f"probe{i}"),
+                      "nodes": ["n1"]})
+        test = {"nodes": ["n1"], "client_type": "http",
+                "db_mode": "local", "db": db}
+        loop = WallLoop()
+        set_current_loop(loop)
+        try:
+            t0 = time.perf_counter()
+            loop.run_coro(db.setup(test))
+            cold.append(time.perf_counter() - t0)
+            db.kill(test, "n1")
+            t0 = time.perf_counter()
+            db.start(test, "n1")
+            loop.run_coro(db._await_node_ready(test, "n1"))
+            restart.append(time.perf_counter() - t0)
+        finally:
+            db.stop_all()
+            set_current_loop(None)
+            loop.shutdown()
+    return cold, restart
+
+
+def hold_live(label: str, out) -> dict:
+    """The holds every live run keeps, on its result ``out``: each key's
+    verdict equal to the native DFS's; the workload's dict equal to the
+    stored history.jsonl checked again with the plain versions on the
+    CPU; a copy of that history with one read of a key wgl_wave decided
+    set to a value never written refuted through wgl_wave on the card.
+    wgl_mxu's launch count is left as it was found, so the holds' own
+    launches never count as the main path's. Fails on any miss; returns
+    what the run's line prints."""
+    from jepsen_etcd_tpu_torch.checkers.linearizable import check_history
+    from jepsen_etcd_tpu_torch.core.history import History
+    from jepsen_etcd_tpu_torch.models import VersionedRegister
+    from jepsen_etcd_tpu_torch.ops import wgl_mxu
+    from jepsen_etcd_tpu_torch.workloads.register import workload
+
+    found = wgl_mxu.LAUNCHES
+    subs = out["history"].split_by_key()
+    lin = {k: r["linear"]
+           for k, r in out["results"]["workload"]["results"].items()}
+    # the deciding engine; a key with info ops leaves wgl_wave for the
+    # ladder or the DFS as in the reference (``checker`` names which)
+    engines = {}
+    for k in subs:
+        engines.setdefault(str(lin[k].get("engine")
+                               or lin[k].get("checker")), []).append(k)
+    dfs_bad = [k for k in subs
+               if check_history(VersionedRegister(), subs[k])["valid?"]
+               is not lin[k]["valid?"]]
+    with open(os.path.join(out["dir"], "history.jsonl")) as f:
+        text = f.read()
+    with open(os.path.join(out["dir"], "test.json")) as f:
+        stored_test = json.load(f)
+    cpu = workload(dict(stored_test, device="cpu"))["checker"].check(
+        stored_test, History.from_jsonl(text))
+    same_cpu = same_json(out["results"]["workload"], cpu)
+    bad_text, bad_key = corrupt_read(text, engines.get("mxu-wave", ()))
+    wgl_mxu.LAUNCHES = 0
+    bad = workload(stored_test)["checker"].check(
+        stored_test, History.from_jsonl(bad_text))
+    bad_launches = wgl_mxu.LAUNCHES
+    wgl_mxu.LAUNCHES = found
+    bad_lin = bad["results"][bad_key]["linear"]
+    if dfs_bad or not same_cpu:
+        fail(f"live {label}: keys {dfs_bad} differ from the native DFS, "
+             f"or the dict differs from the plain versions' ({same_cpu})")
+    if bad["valid?"] is not False or bad_lin["valid?"] is not False or \
+            bad_lin.get("engine") != "mxu-wave" or bad_launches < 1:
+        fail(f"live {label}: the corrupted read was not refuted through "
+             f"wgl_wave: {bad_lin}")
+    return {"subs": subs, "engines": engines,
+            "text": (f"every key's verdict = native DFS: {not dfs_bad}; "
+                     f"dict = the stored history checked with the plain "
+                     f"versions on the CPU: {same_cpu}; key {bad_key} "
+                     f"with a read of {NEVER_WRITTEN}: valid?="
+                     f"{bad['valid?']} (engine {bad_lin.get('engine')}, "
+                     f"wgl_wave launches {bad_launches})")}
+
+
+def gateways(kind: str, n: int) -> tuple:
+    """``n`` loopback gateways of ``kind`` (``http`` or ``grpc``) on
+    ephemeral ports over one shared GatewayState, so that ``n``
+    endpoints serve one linearizable MVCC store as a cluster's members
+    do: their URLs, and a function that stops them all."""
+    import threading
+    from jepsen_etcd_tpu_torch.sut.grpc_gateway import serve_grpc
+    from jepsen_etcd_tpu_torch.sut.http_gateway import GatewayState, serve
+    state = GatewayState()
+    urls, stops = [], []
+    for _ in range(n):
+        if kind == "grpc":
+            gsrv, _, port = serve_grpc(0, state)
+            stops.append(lambda g=gsrv: g.stop(0))
+        else:
+            srv, _ = serve(0, state)
+            port = srv.server_address[1]
+            thread = threading.Thread(target=srv.serve_forever,
+                                      daemon=True)
+            thread.start()
+
+            def stop(srv=srv, thread=thread):
+                srv.shutdown()
+                srv.server_close()
+                thread.join(timeout=10)
+            stops.append(stop)
+        urls.append(f"http://127.0.0.1:{port}")
+
+    def stop_all():
+        for stop in stops:
+            stop()
+    return urls, stop_all
+
+
+def live_run(label: str, card: str, dev, opts: dict,
+             full_key: bool = False) -> int:
+    """One run against live endpoints through ``run_test``: wgl_wave's
+    launches counted around it, every key through wgl_wave and held by
+    ``hold_live``; the run's batch timed on the card. ``full_key`` holds
+    that a key took all of its ``ops_per_key`` ops. Returns the run's
+    wgl_wave launches."""
+    import torch
+    from jepsen_etcd_tpu_torch.compose import etcd_test
+    from jepsen_etcd_tpu_torch.ops import wgl, wgl_mxu
+    from jepsen_etcd_tpu_torch.runner.test_runner import run_test
+
+    # register.workload's group: 2n threads a key, n of them readers
+    threads = min(2 * len(opts["nodes"]), opts["concurrency"])
+    torch.cuda.synchronize()
+    wgl_mxu.LAUNCHES = 0
+    t0 = time.perf_counter()
+    out = run_test(etcd_test(opts))
+    wall = time.perf_counter() - t0
+    launches = wgl_mxu.LAUNCHES
+    phases = out["results"]["telemetry"]["phases"]
+    held = hold_live(label, out)
+    subs = held["subs"]
+    b1_ms, groups = b1_batch_ms(wgl.pack_register_histories_batched(subs),
+                                dev)
+    invokes = sum(1 for op in out["history"].ops
+                  if op.get("type") == "invoke"
+                  and op.get("process") != "nemesis")
+    print(f"live {label} on {card}: {opts['client_type']} to "
+          f"{len(opts['nodes'])} endpoints over one store, "
+          f"{opts['concurrency']} threads ({threads} a key), "
+          f"{opts['rate']} ops/s for {opts['time_limit']} s: "
+          f"valid?={out['valid?']}, {invokes} client ops, achieved "
+          f"{invokes / phases['generate']:.1f} ops/s, phase:generate "
+          f"{phases['generate']:.3f} s, phase:check {phases['check']:.3f} "
+          f"s, wall {wall:.3f} s; {len(subs)} keys of "
+          f"{min(map(len, subs.values()))}-"
+          f"{max(map(len, subs.values()))} entries; engines "
+          f"{held['engines']}; wgl_wave launches {launches}, the run's "
+          f"batch {b1_ms:.3f} ms on the card ({groups} group(s), CUDA "
+          f"events, median of 11); {held['text']}", flush=True)
+    if out["valid?"] is not True or launches < 1 or \
+            set(held["engines"]) != {"mxu-wave"}:
+        fail(f"live {label}: valid? {out['valid?']}, engines "
+             f"{held['engines']}, launches {launches}")
+    if full_key and max(map(len, subs.values())) != 2 * opts["ops_per_key"]:
+        fail(f"live {label}: no key reached {opts['ops_per_key']} ops")
+    return launches
+
+
+def live_phase(card: str, dev) -> dict:
+    """The live side on the card: (a) the register workload over the
+    etcd v3 JSON wire against five of the port's gateways
+    (``sut/http_gateway``) over one store at BASELINE's widths and (b)
+    over native gRPC (``sut/grpc_gateway``), each through ``live_run``;
+    (c) the local control plane on a fake-etcd node under a kill
+    nemesis, the node's spawn timed and no process left behind; (d)
+    three soak windows on one retained node. (c) and each window of (d)
+    keep ``hold_live``'s holds. Returns the runs' wgl_wave launches for
+    the kernels line."""
+    import shutil
+    import tempfile
+    import torch
+    from collections import Counter
+    from jepsen_etcd_tpu_torch.compose import etcd_test
+    from jepsen_etcd_tpu_torch.ops import wgl_mxu
+    from jepsen_etcd_tpu_torch.runner.test_runner import (SOAK_KEY_STRIDE,
+                                                          run_soak,
+                                                          run_test)
+
+    store = tempfile.mkdtemp(prefix="chip-smoke-live-")
+    launches = 0
+    try:
+        # -- (a) the JSON wire at BASELINE's widths, (b) native gRPC --------
+        for label, kind, limit in (("(a)", "http", LIVE_OPTS["time_limit"]),
+                                   ("(b)", "grpc", LIVE_GRPC_TIME_LIMIT)):
+            urls, stop_all = gateways(kind, LIVE_ENDPOINTS)
+            try:
+                launches += live_run(label, card, dev, dict(
+                    LIVE_OPTS, client_type=kind, store_base=store,
+                    time_limit=limit, nodes=urls), full_key=kind == "http")
+            finally:
+                stop_all()
+
+        # -- (c) the local control plane under a kill nemesis --------------
+        cold, restart = fake_spawn_seconds(os.path.join(store, "probe"),
+                                           LIVE_SPAWNS)
+        data = os.path.join(store, "cluster")
+        torch.cuda.synchronize()
+        wgl_mxu.LAUNCHES = 0
+        t0 = time.perf_counter()
+        test = etcd_test(dict(LOCAL_OPTS, etcd_data_dir=data,
+                              store_base=store))
+        out = run_test(test)
+        wall = time.perf_counter() - t0
+        local_launches = wgl_mxu.LAUNCHES
+        launches += local_launches
+        held = hold_live("(c)", out)
+        nem = Counter(op["f"] for op in out["history"].ops
+                      if op.get("process") == "nemesis"
+                      and op.get("type") != "invoke")
+        leaked = pids_with(os.path.abspath(data))
+        phases = out["results"]["telemetry"]["phases"]
+        print(f"live (c) on {card}: --db local --etcd-binary fake, node "
+              f"n1, nemesis kill every {LOCAL_OPTS['nemesis_interval']} "
+              f"s, {LOCAL_OPTS['time_limit']} s at {LOCAL_OPTS['rate']} "
+              f"ops/s: valid?={out['valid?']}, {len(out['history'])} ops, "
+              f"nemesis ops {dict(nem)}, node processes spawned "
+              f"{len(test['db'].all_procs)}; phase:generate "
+              f"{phases['generate']:.3f} s, phase:check "
+              f"{phases['check']:.3f} s, wall {wall:.3f} s; engines "
+              f"{held['engines']}; wgl_wave launches {local_launches}; "
+              f"{held['text']}; processes left with the data dir: "
+              f"{leaked}; a fake-etcd node's spawn to its first leader: "
+              f"cold " + ", ".join(f"{s:.3f}" for s in cold) + " s, after "
+              f"a kill " + ", ".join(f"{s:.3f}" for s in restart) + " s",
+              flush=True)
+        if out["valid?"] is not True or not (nem["kill"] or nem["start"]) \
+                or local_launches < 1 or "mxu-wave" not in held["engines"] \
+                or leaked:
+            fail(f"live (c): valid? {out['valid?']}, nemesis {dict(nem)}, "
+                 f"launches {local_launches}, engines {held['engines']}, "
+                 f"leaked {leaked}")
+
+        # -- (d) soak windows on one retained node -------------------------
+        data = os.path.join(store, "soak")
+        window_held = []
+
+        def on_window(summary, wout):
+            held = hold_live(f"(d) window {len(window_held)}", wout)
+            window_held.append((held["engines"], held["text"]))
+
+        torch.cuda.synchronize()
+        wgl_mxu.LAUNCHES = 0
+        t0 = time.perf_counter()
+        sout = run_soak(dict(SOAK_OPTS, etcd_data_dir=data,
+                             store_base=store), on_window=on_window)
+        wall = time.perf_counter() - t0
+        soak_launches = wgl_mxu.LAUNCHES
+        launches += soak_launches
+        wins = sout["windows"]
+        offsets = [w["key_offset"] for w in wins]
+        leaked = pids_with(os.path.abspath(data))
+        print(f"live (d) on {card}: soak, {sout['count']} windows of "
+              f"{SOAK_OPTS['soak_window_s']} s on one fake-etcd node: "
+              f"valid? {[w['valid?'] for w in wins]}, ops "
+              f"{[w['ops'] for w in wins]}, key_offset {offsets}, window "
+              f"wall-seconds "
+              f"{[round(w['wall-seconds'], 3) for w in wins]}, wall "
+              f"{wall:.3f} s (the holds included); wgl_wave launches "
+              f"{soak_launches}; processes left with the data dir: "
+              f"{leaked}; by window: " + " | ".join(
+                  f"engines {e}; {t}" for e, t in window_held), flush=True)
+        if sout["valid?"] is not True or sout["count"] != 3 or \
+                len(window_held) != 3 or \
+                offsets != [0, SOAK_KEY_STRIDE, 2 * SOAK_KEY_STRIDE] or \
+                any("mxu-wave" not in e for e, _ in window_held) or \
+                soak_launches < 1 or leaked:
+            fail(f"live (d): {wins}, engines "
+                 f"{[e for e, _ in window_held]}, launches {soak_launches}")
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    return {"launches": launches}
+
+
 def frame_tables_entry(p, card: str, dev, launches: int) -> dict:
     """The frame tables (``wgl_mxu.build_tables``, the reference's
     ``_build_tables_one``) at the register cell: its tables held exactly
@@ -3376,6 +3731,11 @@ def main() -> None:
         e["launches"] += {"drain_register": camp["drain"],
                           "threefry_draws": camp["draws"]
                           + streamed["draws"]}[e["name"]]
+
+    # -- 14. the live side ----------------------------------------------
+    marks.append((14, time.perf_counter()))
+    live = live_phase(card, torch.device("cuda", 0))
+    batch_entries[0]["launches"] += live["launches"]
 
     marks.append((None, time.perf_counter()))
     print("section seconds on " + card + ": " + ", ".join(

@@ -1,19 +1,21 @@
 """CLI: `python -m jepsen_etcd_tpu_torch test|test-all|campaign|...`.
 
 Mirrors the reference's lein run commands and flags (etcd.clj:157-257):
-test runs one composed test on the simulated cluster; test-all sweeps
+test runs one composed test; test-all sweeps
 nemeses x workloads; campaign fans the matrix over a pool of worker
 processes (or ``--hosts`` worker agents) with one checker service, or
 runs a coverage-guided search (``--guided``); checker-service runs the
 batched checker service (``runner/checker_service.py``) until
 interrupted; replay re-executes a minimized repro (``shrink.json``);
-worker-agent is one campaign host agent; tel mines telemetry artifacts.
-The checkers run on ``--device`` (default ``cuda``); ``--device cpu``
-runs the kernels' plain PyTorch versions. ``--stream`` checks online
-while the run generates (runner/stream.py). The live side
-(``--client-type http|grpc``, ``--db local|live``, ``--soak``) and the
-serve, store and gateway commands are not ported yet (ROADMAP A
-item 8).
+worker-agent is one campaign host agent; tel mines telemetry artifacts;
+gateway serves an etcd v3 endpoint (JSON, or gRPC with ``--grpc``) over
+the simulated MVCC store. The checkers run on ``--device`` (default
+``cuda``); ``--device cpu`` runs the kernels' plain PyTorch versions.
+``--stream`` checks online while the run generates (runner/stream.py).
+``--client-type http|grpc`` drives real etcd: an external cluster at
+``--endpoint`` (``--db live``) or processes this machine spawns and
+faults (``--db local``); ``--soak`` checks one long-lived cluster window
+by window. The serve and store commands are not ported yet.
 """
 
 from __future__ import annotations
@@ -69,9 +71,38 @@ def build_parser() -> argparse.ArgumentParser:
         s.add_argument("--serializable", action="store_true")
         s.add_argument("--lazyfs", action="store_true")
         s.add_argument("--client-type", default="direct",
-                       choices=["direct", "etcdctl"],
-                       help="both drive the simulated cluster "
-                            "(etcd.clj:161-164)")
+                       choices=["direct", "etcdctl", "http", "grpc"],
+                       help="direct/etcdctl drive the simulated cluster; "
+                            "http drives a LIVE etcd over its v3 JSON "
+                            "gateway, grpc over native gRPC — the "
+                            "reference's wire protocol "
+                            "(etcd.clj:246-257, client.clj:14-68)")
+        s.add_argument("--endpoint", default="http://127.0.0.1:2379",
+                       help="comma-separated live-etcd endpoint URLs "
+                            "(only with --client-type http/grpc); each "
+                            "endpoint is a node")
+        s.add_argument("--db", default=None,
+                       choices=["sim", "live", "local"],
+                       help="cluster lifecycle: sim (default for "
+                            "direct/etcdctl), live (external cluster at "
+                            "--endpoint, no fault control plane), local "
+                            "(spawn+supervise etcd processes on this "
+                            "machine — kill/pause/member/admin faults "
+                            "work; default for http/grpc is live)")
+        s.add_argument("--etcd-binary", default=None,
+                       help="--db local: etcd argv (shell-split). "
+                            "Default: etcd from PATH if present, else "
+                            "the bundled fake-etcd stub; 'fake' forces "
+                            "the stub")
+        s.add_argument("--etcd-data-dir", default=None,
+                       help="--db local: root for per-node data dirs "
+                            "and logs (default: a fresh temp dir)")
+        s.add_argument("--net-proxy", action="store_true",
+                       help="--db local: front every peer/client URL "
+                            "with the userspace TCP proxy plane "
+                            "(net/plane.py) even when no network fault "
+                            "is requested; partition/latency faults "
+                            "raise it automatically")
         s.add_argument("--snapshot-count", type=int, default=100)
         s.add_argument("--unsafe-no-fsync", action="store_true",
                        help="ask the SUT not to fsync WAL appends "
@@ -92,6 +123,26 @@ def build_parser() -> argparse.ArgumentParser:
                        help="skip writing store/<run>/telemetry.jsonl "
                             "(phase/checker spans and kernel counters "
                             "are on by default)")
+        s.add_argument("--soak", action="store_true",
+                       help="sliding-window soak against ONE long-lived "
+                            "cluster (--client-type http/grpc): each "
+                            "window is generated, streamed, checked and "
+                            "released before the next, so memory stays "
+                            "bounded indefinitely")
+        s.add_argument("--soak-windows", type=int, default=0,
+                       help="number of soak windows (0 = run until "
+                            "interrupted)")
+        s.add_argument("--soak-window-s", type=float, default=None,
+                       help="per-window time limit in seconds "
+                            "(default: --time-limit)")
+        s.add_argument("--soak-net-fault", action="append", default=None,
+                       metavar="KIND[:ARG]",
+                       help="long-lived net-plane fault schedule "
+                            "(--db local): windows cycle through "
+                            "[healthy] + these faults, each applied to "
+                            "the proxy plane for the WHOLE window and "
+                            "healed after. Kinds: latency[:delta-ms], "
+                            "drop[:probability], partition. Repeatable")
         s.add_argument("--test-count", type=int, default=1)
         s.add_argument("--inject-stale-reads", action="store_true",
                        help="seed the sim's stale-read bug class "
@@ -166,8 +217,8 @@ def build_parser() -> argparse.ArgumentParser:
                            "with their draws and drain on --device "
                            "(MVCC workloads delegate to the epoch-v2 "
                            "sweep); runs the batched generator cannot "
-                           "serve (unsupported workloads, --stream) "
-                           "fall back to "
+                           "serve (live clusters, unsupported "
+                           "workloads, --stream/--soak) fall back to "
                            "epoch-v1, and every campaign.json row "
                            "records the epoch that actually produced it")
     camp.add_argument("--hosts", type=int, default=0,
@@ -248,6 +299,14 @@ def build_parser() -> argparse.ArgumentParser:
     wa.add_argument("--token", default=None,
                     help="pool auth token (default: env "
                          "JEPSEN_ETCD_TPU_SERVICE_TOKEN)")
+    gw = sub.add_parser("gateway",
+                        help="serve an etcd v3 JSON-gateway endpoint "
+                             "backed by the simulated MVCC store (the "
+                             "real-etcd adapter's hermetic test double)")
+    gw.add_argument("-p", "--port", type=int, default=2379)
+    gw.add_argument("--grpc", action="store_true",
+                    help="serve native gRPC (etcdserverpb) instead of "
+                         "the JSON gateway")
     tl = sub.add_parser("tel",
                         help="mine telemetry artifacts offline: span "
                              "percentile tables (default), --diff "
@@ -309,10 +368,16 @@ def parse_nemesis_spec(spec: str) -> list[str]:
 
 
 def opts_from_args(args) -> dict:
-    """The run opts of a parsed command line: the reference's keys
-    (options the port's parser does not offer take their defaults),
+    """The run opts of a parsed command line: the reference's keys,
     plus ``device``."""
-    nodes = [n.strip() for n in args.nodes.split(",") if n.strip()]
+    db_mode = getattr(args, "db", None)
+    if args.client_type in ("http", "grpc") and db_mode != "local":
+        # live mode: nodes ARE the endpoint URLs
+        nodes = [e.strip() for e in args.endpoint.split(",") if e.strip()]
+    else:
+        # sim and local modes: nodes are NAMES (local maps name ->
+        # client URL in db/local.py)
+        nodes = [n.strip() for n in args.nodes.split(",") if n.strip()]
     conc = args.concurrency
     if isinstance(conc, str):
         if conc.endswith("n"):
@@ -331,7 +396,7 @@ def opts_from_args(args) -> dict:
         "serializable": args.serializable,
         "lazyfs": args.lazyfs,
         "client_type": args.client_type,
-        "db_mode": getattr(args, "db", None),
+        "db_mode": db_mode,
         "etcd_binary": getattr(args, "etcd_binary", None),
         "etcd_data_dir": getattr(args, "etcd_data_dir", None),
         "net_proxy": getattr(args, "net_proxy", False),
@@ -487,6 +552,30 @@ def main(argv=None) -> int:
     if args.command == "worker-agent":
         from .runner.host_agent import agent_main
         return agent_main(args.connect, args.host, token=args.token)
+    if args.command == "gateway":
+        log = logging.getLogger("jepsen_etcd_tpu_torch")
+        if args.grpc:
+            import time as _time
+            from .sut.grpc_gateway import serve_grpc
+            srv, _state, port = serve_grpc(args.port)
+            log.info("etcd v3 gRPC gateway on 127.0.0.1:%d (sim store)",
+                     port)
+            try:
+                while True:
+                    _time.sleep(3600)
+            except KeyboardInterrupt:
+                srv.stop(0)
+            return 0
+        from .sut.http_gateway import serve as gw_serve
+        srv, _state = gw_serve(args.port)
+        log.info(
+            "etcd v3 gateway on http://127.0.0.1:%d (sim store)",
+            srv.server_address[1])
+        try:
+            srv.serve_forever()
+        except KeyboardInterrupt:
+            pass
+        return 0
     if args.command == "checker-service":
         import time as _time
         from .runner.checker_service import CheckerService
@@ -519,6 +608,24 @@ def main(argv=None) -> int:
         return run_campaign_command(args)
     if args.command == "test":
         opts = opts_from_args(args)
+        if opts.get("soak"):
+            from .runner.test_runner import run_soak
+
+            def _print_window(summary, _out):
+                print(json.dumps(summary))
+                return None
+
+            try:
+                out = run_soak(opts, on_window=_print_window)
+            except KeyboardInterrupt:
+                # interactive stop is the normal exit for
+                # --soak-windows 0; the finally in run_soak already
+                # tore the shared cluster down
+                print(json.dumps({"soak": "interrupted"}))
+                return 0
+            print(json.dumps({"soak-windows": out["count"],
+                              "valid?": out["valid?"]}))
+            return 0 if out["valid?"] is True else 1
         ok = True
         for i in range(args.test_count):
             opts["seed"] = args.seed + i

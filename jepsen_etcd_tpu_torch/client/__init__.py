@@ -14,12 +14,23 @@ def client(test, node: str):
     ctype = (test.get("client_type") or "direct") if isinstance(test, dict) \
         else "direct"
     if ctype in ("http", "grpc"):
-        # the live-etcd clients (etcd.clj:246-257 drives a real cluster)
-        # come with the port's live side
-        raise ValueError(
-            f"client type {ctype!r} drives real etcd, which the port "
-            "does not run yet (ROADMAP A item 8); use 'direct' or "
-            "'etcdctl' against the simulated cluster")
+        # live-etcd mode (etcd.clj:246-257 drives a real cluster). With
+        # the local control plane (--db local) the node is a NAME and
+        # the control plane owns the name -> client URL mapping; in live
+        # mode the node IS its endpoint URL
+        endpoint = node
+        if isinstance(test, dict) and test.get("db_mode") == "local":
+            endpoint = test["db"].client_url(node)
+        if ctype == "http":
+            from .etcd_http import HttpEtcdClient
+            c = HttpEtcdClient(endpoint)
+        else:
+            # native gRPC — the reference's wire protocol (jetcd,
+            # client.clj:14-68)
+            from .etcd_grpc import GrpcEtcdClient
+            c = GrpcEtcdClient(endpoint)
+        c.node = node  # histories and per-node stats keyed by name
+        return c
     cluster = test["cluster"]
     if ctype == "direct":
         return DirectClient(cluster, node)

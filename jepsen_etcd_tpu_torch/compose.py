@@ -4,12 +4,14 @@ Builds a full test map from CLI-style opts: workload + db + nemesis
 package + the phased generator (main phase at :rate under the nemesis,
 then heal, recover, final client generator) + the composed checker stack.
 
-The port runs the simulated cluster only. ``opts["device"]`` names the
-device the checkers run on: None (the default) is the card, and with no
-card composing the test raises; ``"cpu"`` runs the kernels' plain
-PyTorch versions. ``default_opts`` carries every option of the
-reference's; those of the live side raise when set
-(``_refuse_later_slices``).
+The database is the simulated cluster (``--db sim``, the default for
+the direct and etcdctl clients), an external etcd cluster reached over
+the live wire (``--db live``, the default for the http and grpc
+clients), or etcd processes this machine spawns and faults (``--db
+local``, db/local.py). ``opts["device"]`` names the device the checkers
+run on: None (the default) is the card, and with no card composing the
+test raises, before a gateway or process is started; ``"cpu"`` runs the
+kernels' plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -42,13 +44,13 @@ def default_opts() -> dict:
         "concurrency": None,            # default 2n
         "serializable": False,
         "lazyfs": False,
-        "client_type": "direct",        # or "etcdctl" (etcd.clj:161-164);
-                                        # http and grpc raise
-        "db_mode": None,                # sim (None); local and live
-                                        # raise (ROADMAP A item 8)
-        "etcd_binary": None,            # --db local: argv prefix (A8)
-        "etcd_data_dir": None,          # --db local: data/log root (A8)
-        "etcd_env": None,               # --db local: extra child env (A8)
+        "client_type": "direct",        # or "etcdctl" (etcd.clj:161-164)
+        "db_mode": None,                # sim | live | local (None: infer
+                                        # from client_type)
+        "etcd_binary": None,            # --db local: argv prefix; None =
+                                        # etcd from PATH, else fake stub
+        "etcd_data_dir": None,          # --db local: data/log root
+        "etcd_env": None,               # --db local: extra child env
         "snapshot_count": 100,          # etcd.clj:197-200
         "unsafe_no_fsync": False,       # etcd.clj:204 (opt-in, like etcd)
         "corrupt_check": False,         # etcd.clj:164
@@ -71,12 +73,13 @@ def default_opts() -> dict:
                                         # checked key)
         "soak": False,                  # --soak: sliding-window run
                                         # against one long-lived cluster
-                                        # (ROADMAP A item 8)
         "soak_windows": 0,              # 0 = run until interrupted
         "soak_window_s": None,          # per-window time limit (None:
                                         # --time-limit)
         "soak_net_faults": [],          # --soak-net-fault schedule:
-                                        # windows cycle [healthy]+these
+                                        # windows cycle [healthy]+these,
+                                        # each held for a whole window
+                                        # on the proxy plane
         "version": "sim-3.5.6",         # etcd.clj:206-207 (pinned: the sim
                                         # has exactly one "binary")
         "checker_service": None,        # AF_UNIX socket path or
@@ -106,7 +109,9 @@ def default_opts() -> dict:
                                         # routing alone)
         "net_proxy": False,             # --db local: front every peer/
                                         # client URL with the userspace
-                                        # proxy plane (ROADMAP A item 8)
+                                        # proxy plane (net/plane.py).
+                                        # Auto-set when partition or
+                                        # latency faults are requested.
         "gen_epoch": "epoch-v1",        # generator epoch (see the epoch
                                         # ledger in runner/sim.py):
                                         # epoch-v1 = SimLoop event loop;
@@ -149,39 +154,71 @@ def default_opts() -> dict:
     }
 
 
-#: options whose machinery is still missing in the port -> the ROADMAP
-#: item that brings it; a value other than the default raises
-_LATER_SLICE_OPTS = {
-    "soak_windows": "A item 8", "soak_window_s": "A item 8",
-    "soak_net_faults": "A item 8", "net_proxy": "A item 8",
-    "etcd_binary": "A item 8", "etcd_data_dir": "A item 8",
-    "etcd_env": "A item 8",
+#: faults the local control plane (db/local.py) can inject with plain
+#: process-level privileges; partition + latency ride the userspace
+#: TCP proxy plane (net/plane.py), raised automatically when requested
+LOCAL_FAULTS = {"kill", "pause", "member", "admin", "partition",
+                "latency"}
+
+#: fault -> why `--db local` refuses it (each REMAINING failure mode is
+#: specific and documented, not a blanket live-mode error; see README
+#: "Fault / privilege matrix". Partition/latency used to live here —
+#: the net proxy plane closed that gap.)
+LOCAL_FAULT_REFUSALS = {
+    "clock": ("clock skew needs per-process time virtualization "
+              "(CAP_SYS_TIME / libfaketime); the local control plane "
+              "does not alter the host clock"),
+    "bitflip-wal": ("on-disk corruption injection targets the "
+                    "simulated WAL/snapshot files; a real etcd's data "
+                    "dir has no byte-level corruption hook here"),
 }
+LOCAL_FAULT_REFUSALS["bitflip-snap"] = LOCAL_FAULT_REFUSALS["bitflip-wal"]
+LOCAL_FAULT_REFUSALS["truncate-wal"] = LOCAL_FAULT_REFUSALS["bitflip-wal"]
 
 
-def _refuse_later_slices(o: dict) -> None:
-    """Options whose machinery the port does not have yet raise, naming
-    the ROADMAP item that brings it; they never quietly run something
-    else."""
-    if o.get("client_type") in ("http", "grpc"):
+def fault_matrix(db_mode: str = "local") -> dict:
+    """fault -> {"supported": bool, "why": refusal-or-None} for the
+    given db mode; the README table and test_config_plane assert these
+    rows. Sim supports everything; live supports nothing (the cluster
+    is external)."""
+    from .nemesis.faults import KNOWN_FAULTS
+    rows = {}
+    for fault in sorted(KNOWN_FAULTS):
+        if db_mode == "live":
+            supported, why = False, "external cluster: no control plane"
+        elif db_mode == "local":
+            supported = fault in LOCAL_FAULTS
+            why = None if supported else LOCAL_FAULT_REFUSALS.get(
+                fault, "not implemented")
+        else:
+            supported, why = True, None
+        rows[fault] = {"supported": supported, "why": why}
+    return rows
+
+
+def _check_fault_support(db_mode: str, o: dict) -> None:
+    """Refuse unsupportable fault requests up front, specifically."""
+    faults = list(o.get("nemesis") or [])
+    if not faults:
+        return
+    if db_mode == "live":
+        # the reference faults real nodes over SSH (db.clj); an
+        # external cluster offers only the client wire
         raise ValueError(
-            f"--client-type {o['client_type']} drives real etcd; the "
-            "port's live side is not there yet (ROADMAP A item 8). Use "
-            "direct or etcdctl against the simulated cluster")
-    if o.get("db_mode") not in (None, "sim"):
-        raise ValueError(
-            f"--db {o['db_mode']} drives real etcd processes; the "
-            "port's live side is not there yet (ROADMAP A item 8)")
-    if o.get("soak"):
-        raise ValueError(
-            "soak mode checks a long-lived live cluster; the port's "
-            "live side is not there yet (ROADMAP A item 8)")
-    defaults = default_opts()
-    for key, item in _LATER_SLICE_OPTS.items():
-        if key in o and o[key] != defaults[key]:
+            f"live mode (--client-type {o['client_type']}) has no "
+            f"control plane for faults {faults}: the cluster is "
+            "external. Use --db local to spawn and fault local etcd "
+            "processes, or the simulated cluster")
+    if db_mode == "local":
+        refused = [f for f in faults if f not in LOCAL_FAULTS]
+        if refused:
+            reasons = "; ".join(
+                f"{f}: {LOCAL_FAULT_REFUSALS.get(f, 'not implemented')}"
+                for f in sorted(set(refused)))
             raise ValueError(
-                f"option {key}={o[key]!r} needs machinery the port does "
-                f"not have yet (ROADMAP {item})")
+                f"--db local cannot inject {sorted(set(refused))} — "
+                f"{reasons}. Supported local faults: "
+                f"{sorted(LOCAL_FAULTS)}")
 
 
 def etcd_test(opts: dict) -> dict:
@@ -191,14 +228,37 @@ def etcd_test(opts: dict) -> dict:
     n = len(o["nodes"])
     if not o.get("concurrency"):
         o["concurrency"] = 2 * n
-    _refuse_later_slices(o)
     # the card unless the caller names another device; raises here,
     # before anything runs, when there is none
     resolve_device(o["device"])
     wl_fn = workloads()[o["workload"]]
     workload = wl_fn(o)
-    o["db_mode"] = "sim"
-    o["db"] = make_db(o)
+    live = o["client_type"] in ("http", "grpc")
+    db_mode = o.get("db_mode") or ("live" if live else "sim")
+    o["db_mode"] = db_mode
+    if db_mode in ("live", "local") and not live:
+        raise ValueError(
+            f"--db {db_mode} drives real etcd over the live wire; use "
+            "--client-type http or grpc (direct/etcdctl speak to the "
+            "simulated cluster only)")
+    if db_mode == "sim" and live:
+        raise ValueError(
+            f"--client-type {o['client_type']} speaks to real etcd; "
+            "--db sim has no live endpoints. Use --db live (external "
+            "cluster) or --db local (locally spawned processes)")
+    _check_fault_support(db_mode, o)
+    if db_mode == "local" and \
+            {"partition", "latency"} & set(o.get("nemesis") or []):
+        # network faults in local mode ride the userspace proxy plane
+        o["net_proxy"] = True
+    if db_mode == "local":
+        from .db.local import local_db
+        o["db"] = local_db(o)
+    elif db_mode == "live":
+        from .db.live import live_db
+        o["db"] = live_db(o)
+    else:
+        o["db"] = make_db(o)
     nem = nemesis_package(o)
 
     rate_gap = int(SECOND / o["rate"]) if o["rate"] else 0

@@ -8,8 +8,8 @@ ledger balanced per host and in total, and every stored verdict equal
 to in-process re-checks by the port and the reference; a campaign whose
 service starts late heals; agent deaths re-queue and strand to inline
 runs; a fleet of none runs inline; a wrong token never joins. The
-reference's net-proxy case waits for the port's ``net/`` (ROADMAP A
-item 8). The service runs on CPU lanes with the wave kernel's gate open
+reference's net-proxy case is tests/test_torch_live_fleet_net.py. The
+service runs on CPU lanes with the wave kernel's gate open
 (as in ``tests/test_torch_campaign.py``); the agents check nothing
 themselves."""
 

@@ -51,6 +51,7 @@ PORT_MODULES = [
     "jepsen_etcd_tpu_torch.runner.shrink",
     "jepsen_etcd_tpu_torch.runner.guided",
     "jepsen_etcd_tpu_torch.runner.host_agent",
+    "jepsen_etcd_tpu_torch.runner.wall",
     "jepsen_etcd_tpu_torch.tel_cli",
     "jepsen_etcd_tpu_torch.simbatch",
     "jepsen_etcd_tpu_torch.simbatch.heap",
@@ -66,17 +67,29 @@ PORT_MODULES = [
     "jepsen_etcd_tpu_torch.sut.store",
     "jepsen_etcd_tpu_torch.sut.wal",
     "jepsen_etcd_tpu_torch.sut.cluster",
+    "jepsen_etcd_tpu_torch.sut.http_gateway",
+    "jepsen_etcd_tpu_torch.sut.grpc_gateway",
     "jepsen_etcd_tpu_torch.client",
     "jepsen_etcd_tpu_torch.client.txn",
     "jepsen_etcd_tpu_torch.client.errors",
     "jepsen_etcd_tpu_torch.client.base",
     "jepsen_etcd_tpu_torch.client.direct",
     "jepsen_etcd_tpu_torch.client.etcdctl",
+    "jepsen_etcd_tpu_torch.client.etcd_http",
+    "jepsen_etcd_tpu_torch.client.etcd_grpc",
+    "jepsen_etcd_tpu_torch.client.proto",
+    "jepsen_etcd_tpu_torch.client.proto.etcd_rpc_pb2",
     "jepsen_etcd_tpu_torch.nemesis",
     "jepsen_etcd_tpu_torch.nemesis.packages",
     "jepsen_etcd_tpu_torch.nemesis.faults",
     "jepsen_etcd_tpu_torch.db",
     "jepsen_etcd_tpu_torch.db.etcd",
+    "jepsen_etcd_tpu_torch.db.live",
+    "jepsen_etcd_tpu_torch.db.local",
+    "jepsen_etcd_tpu_torch.db.fake_etcd",
+    "jepsen_etcd_tpu_torch.net",
+    "jepsen_etcd_tpu_torch.net.proxy",
+    "jepsen_etcd_tpu_torch.net.plane",
     "jepsen_etcd_tpu_torch.workloads",
     "jepsen_etcd_tpu_torch.workloads.base",
     "jepsen_etcd_tpu_torch.workloads.debug",
@@ -144,6 +157,30 @@ def test_port_sources_name_no_jax_import():
                                          "jepsen_etcd_tpu"):
                     offenders.append(f"{path}:{n}: {s}")
     assert not offenders, offenders
+
+
+#: top-level packages a fake-etcd node must never import
+HEAVY = ("torch", "jax", "jaxlib", "numpy", "jepsen_etcd_tpu")
+
+
+def test_spawned_fake_etcd_imports_no_torch():
+    """A fake-etcd node (``db/local.py`` spawns it by file path, at
+    every start, restart and crash-loop probe) needs only ``sut/``: run
+    by file path (here with no arguments, so it exits once its imports
+    are done), its import trace names neither torch nor jax nor the JAX
+    package."""
+    from jepsen_etcd_tpu_torch.db.local import FAKE_ETCD
+    assert FAKE_ETCD == os.path.join(REPO, "jepsen_etcd_tpu_torch", "db",
+                                     "fake_etcd.py")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-X", "importtime", FAKE_ETCD],
+                         cwd="/", env=env, capture_output=True, text=True,
+                         timeout=60)
+    assert out.returncode == 2, out.stderr
+    imported = [ln.rsplit("|", 1)[1].strip() for ln in
+                out.stderr.splitlines() if ln.startswith("import time:")]
+    assert "jepsen_etcd_tpu_torch.sut.http_gateway" in imported
+    assert not [m for m in imported if m.split(".")[0] in HEAVY]
 
 
 def test_host_agents_spawn_this_package():

@@ -6,8 +6,9 @@ wr, at the e2e suite's small size (``tests/test_e2e.py:10-14``). The
 port runs with ``device="cpu"``: its kernels' plain PyTorch versions.
 With ``force_kernel`` every key of the register workload goes to the
 wave kernel's batched launch (the reference's Pallas batch in interpret
-mode). Options of later slices raise, and without a card the port never
-moves to the CPU on its own."""
+mode). The live side refuses what the reference refuses, with the
+reference's messages, the client factory builds the live clients, and
+without a card the port never moves to the CPU on its own."""
 
 import json
 import os
@@ -196,20 +197,49 @@ def test_no_card_raises_unless_cpu(monkeypatch, workload):
     assert test["device"] == "cpu" and test["db_mode"] == "sim"
 
 
-@pytest.mark.parametrize("opts,item", [
-    ({"client_type": "http"}, "item 8"),
-    ({"client_type": "grpc"}, "item 8"),
-    ({"db_mode": "local"}, "item 8"),
-    ({"db_mode": "live"}, "item 8"),
-    ({"soak": True}, "item 8"),
-    ({"net_proxy": True}, "item 8"),
-])
-def test_later_slices_raise_naming_their_item(opts, item):
-    with pytest.raises(ValueError, match=f"ROADMAP A {item}"):
-        compose.etcd_test(dict(opts, device="cpu"))
+#: live-side requests the reference refuses while composing a test
+REFUSED = {
+    "live-http-kill": {"client_type": "http", "nemesis": ["kill"]},
+    "live-grpc-partition-pause": {"client_type": "grpc",
+                                  "nemesis": ["partition", "pause"]},
+    "local-direct": {"db_mode": "local"},
+    "live-direct": {"db_mode": "live"},
+    "local-etcdctl": {"db_mode": "local", "client_type": "etcdctl"},
+    "live-etcdctl": {"db_mode": "live", "client_type": "etcdctl"},
+    "sim-grpc": {"db_mode": "sim", "client_type": "grpc"},
+    "sim-http": {"db_mode": "sim", "client_type": "http"},
+}
+
+
+@pytest.mark.parametrize("case", list(REFUSED))
+def test_live_refusals_equal_the_references(case):
+    with pytest.raises(ValueError) as want:
+        ref_compose.etcd_test(dict(REFUSED[case]))
+    with pytest.raises(ValueError) as got:
+        compose.etcd_test(dict(REFUSED[case], device="cpu"))
+    assert str(got.value) == str(want.value)
+
+
+class _LocalDbStub:
+    def client_url(self, node):
+        return {"n1": "http://127.0.0.1:1"}[node]
 
 
 @pytest.mark.parametrize("ctype", ["http", "grpc"])
-def test_client_factory_raises_for_the_live_clients(ctype):
-    with pytest.raises(ValueError, match="ROADMAP A item 8"):
-        client.client({"client_type": ctype}, "n1")
+def test_client_factory_builds_the_live_clients(ctype):
+    """http and grpc build the port's live clients: in live mode the
+    node is its endpoint URL, in local mode the control plane maps the
+    node's name to its client URL; histories name the node."""
+    from jepsen_etcd_tpu_torch.client.etcd_grpc import GrpcEtcdClient
+    from jepsen_etcd_tpu_torch.client.etcd_http import HttpEtcdClient
+    cls = {"http": HttpEtcdClient, "grpc": GrpcEtcdClient}[ctype]
+    live = client.client({"client_type": ctype}, "http://127.0.0.1:2")
+    local = client.client({"client_type": ctype, "db_mode": "local",
+                           "db": _LocalDbStub()}, "n1")
+    try:
+        assert type(live) is cls and type(local) is cls
+        assert live.node == "http://127.0.0.1:2" and local.node == "n1"
+        assert local.endpoint.endswith("127.0.0.1:1")
+    finally:
+        live.close()
+        local.close()
