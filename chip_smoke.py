@@ -67,10 +67,16 @@ gateway, then over native gRPC, then on the local control plane's
 fake-etcd node under a kill nemesis and in three soak windows, every
 key through wgl_wave's batched launch and held against the native DFS,
 each run's dict against its stored history checked with the plain
-versions on the CPU, a corrupted read refuted. The frame tables (``build_tables``, held against the host
-packer) and the unsharded ladder rung (CUDA graphs held against the
-same ops issued one by one) are timed at the register and
-ladder-at-real-size cells. Prints the card's name and power limit, a
+versions on the CPU, a corrupted read refuted. Last the store's readers
+(``readers_phase``) over the runner and campaign phases' stores:
+``store index --rebuild`` and verify (the index's runs =
+``forensics.all_runs``, the walk's rows = the index's), ``store compact
+--dry-run``, ``serve`` on port 0 in a process of its own with every
+page read over HTTP (each run page's verdicts and engines held against
+its results.json), and the linter over the port's tree. The frame
+tables (``build_tables``, held against the host packer) and the
+unsharded ladder rung (CUDA graphs held against the same ops issued
+one by one) are timed at the register and ladder-at-real-size cells. Prints the card's name and power limit, a
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
 Exits non-zero, with no result line, when CUDA is unavailable or any
 phase fails. Imports nothing of JAX or of the JAX package.
@@ -78,7 +84,9 @@ phase fails. Imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
+import io
 import json
 import os
 import random
@@ -298,6 +306,14 @@ LIVE_OPTS = {"workload": "register", "concurrency": 20,
              "ops_per_key": 2000, "rate": 200.0, "time_limit": 30,
              "force_kernel": True}
 LIVE_GRPC_TIME_LIMIT = 10
+#: the readers phase: the runner and campaign phases' stores, indexed,
+#: checked and served; one small run with a network trace joins the
+#: runner's store (no earlier run records one) so the trace viewer has
+#: events to show; /aggregate pages of READERS_PER rows
+READERS_TRACE_OPTS = {"workload": "register", "time_limit": 3,
+                      "rate": 100, "nemesis": ["partition"],
+                      "nemesis_interval": 1, "tcpdump": True, "seed": 3}
+READERS_PER = 20
 LIVE_ENDPOINTS = 5
 LOCAL_OPTS = {"workload": "register", "client_type": "http",
               "db_mode": "local", "etcd_binary": "fake", "nodes": ["n1"],
@@ -2077,6 +2093,8 @@ def runner_phase(card: str, dev) -> dict:
     from jepsen_etcd_tpu_torch.runner.test_runner import run_test
 
     store = tempfile.mkdtemp(prefix="chip-smoke-runner-")
+    # the readers phase serves this store and removes it
+    atexit.register(shutil.rmtree, store, True)
     try:
         # -- (a) the BASELINE configuration through the CLI --------------
         runs = []
@@ -2254,10 +2272,12 @@ def runner_phase(card: str, dev) -> dict:
         if aout["valid?"] is not True or "closure.device" not in spans \
                 or not seen or scc_bad:
             fail(f"runner (d): append {ares}")
-    finally:
+    except BaseException:
         shutil.rmtree(store, ignore_errors=True)
+        raise
     return {"launches": launches + stale_launches, "max_abs_err": err,
-            "baseline": baseline}
+            "baseline": baseline, "store": store,
+            "runs": [out["dir"], sout["dir"], wout["dir"], aout["dir"]]}
 
 
 def no_wall(x):
@@ -2677,7 +2697,9 @@ def campaign_phase(card: str, dev) -> dict:
                                                 history_sha)
 
     store = tempfile.mkdtemp(prefix="cs-")
-    launches = {"wgl_wave": 0, "drain": 0, "draws": 0}
+    # the readers phase serves this store and removes it
+    atexit.register(shutil.rmtree, store, True)
+    launches = {"wgl_wave": 0, "drain": 0, "draws": 0, "store": store}
     try:
         # -- (a) serial, pooled, pooled with the service -----------------
         arms = {}
@@ -2850,8 +2872,9 @@ def campaign_phase(card: str, dev) -> dict:
                 gout["first_failure_run"] > 12 or not mini or \
                 mini[0]["nemesis_ops"] >= 10 or rc != 0 or not same:
             fail("campaign (d): guided search, shrink or replay")
-    finally:
+    except BaseException:
         shutil.rmtree(store, ignore_errors=True)
+        raise
     return launches
 
 
@@ -3175,6 +3198,245 @@ def live_phase(card: str, dev) -> dict:
     finally:
         shutil.rmtree(store, ignore_errors=True)
     return {"launches": launches}
+
+
+def store_cmd(*argv) -> tuple:
+    """``python -m jepsen_etcd_tpu_torch store ...`` through ``cli.main``:
+    (exit code, the JSON it printed, seconds)."""
+    from jepsen_etcd_tpu_torch import cli
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["store", *argv])
+    return rc, json.loads(buf.getvalue()), time.perf_counter() - t0
+
+
+def copy_but_histories(src: str, dst: str) -> None:
+    """``shutil.copy2``, except that a history.jsonl is copied empty."""
+    import shutil
+    if os.path.basename(src) == "history.jsonl":
+        open(dst, "w").close()
+    else:
+        shutil.copy2(src, dst)
+
+
+def page_checks(page: str, results: dict) -> tuple:
+    """What a run page shows against the run's results.json: the
+    header's verdict, each checker's verdict and detail (the page's
+    first 2,000 characters of its JSON), and the engines that detail
+    names, in order. Returns (the faults found, the engines shown)."""
+    import html as html_mod
+    import re
+    faults = []
+    cls = {True: "ok", False: "bad"}
+    head = re.search(r"</a></p><h1>.*? <span class=\"(\w+)\">(.*?)</span>"
+                     r"</h1>", page, re.S)
+    want = results.get("valid?")
+    if not head or head.group(2) != html_mod.escape(str(want)) or \
+            head.group(1) != cls.get(want, "unk"):
+        faults.append(f"header {head and head.groups()} != {want}")
+    rows = re.findall(r"<tr><td>([^<]*)</td><td><span class=\"(\w+)\">"
+                      r"([^<]*)</span></td><td><code>(.*?)</code></td></tr>",
+                      page, re.S)
+    checkers = [(k, v) for k, v in sorted(results.items())
+                if isinstance(v, dict) and "valid?" in v]
+    if [html_mod.unescape(r[0]) for r in rows] != [k for k, _ in checkers]:
+        faults.append(f"checkers {[r[0] for r in rows]}")
+        return faults, []
+    engines = []
+    for (name, c, val, blob), (_, v) in zip(rows, checkers):
+        detail = json.dumps({dk: dv for dk, dv in v.items()
+                             if dk != "valid?"}, default=repr)[:2000]
+        if val != html_mod.escape(str(v["valid?"])) or \
+                c != cls.get(v["valid?"], "unk") or \
+                html_mod.unescape(blob) != detail:
+            faults.append(f"checker {name}: {val} vs {v['valid?']}")
+        shown = re.findall(r'"engine": "([^"]+)"', html_mod.unescape(blob))
+        stored = re.findall(r'"engine": "([^"]+)"', json.dumps(
+            {dk: dv for dk, dv in v.items() if dk != "valid?"},
+            default=repr))
+        if shown != stored[:len(shown)]:
+            faults.append(f"checker {name}: engines {shown} vs {stored}")
+        engines += shown
+    return faults, engines
+
+
+def readers_phase(card: str, runner: dict, camp: dict) -> None:
+    """The store's readers on the stores the runner and campaign phases
+    wrote on the card: ``store index --rebuild`` and ``store index``
+    (the index's run rows = ``forensics.all_runs``), the walk path's rows
+    = the index's, ``store compact --dry-run`` at the default --keep;
+    then ``serve`` on port 0 in a process of its own, every page read
+    over HTTP and each run page held against its results.json; then the
+    linter over the port's tree. Removes both stores."""
+    import shutil
+    import signal
+    import tempfile
+    import urllib.request
+    from jepsen_etcd_tpu_torch import forensics, serve
+    from jepsen_etcd_tpu_torch.compose import etcd_test
+    from jepsen_etcd_tpu_torch.runner import store_index
+    from jepsen_etcd_tpu_torch.runner.test_runner import run_test
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    rstore, cstore = runner["store"], camp["store"]
+    secs = {}
+    procs = []
+    try:
+        t0 = time.perf_counter()
+        tout = run_test(etcd_test(dict(READERS_TRACE_OPTS,
+                                       store_base=rstore)))
+        secs["trace run"] = time.perf_counter() - t0
+        if not os.path.exists(os.path.join(tout["dir"], "trace.jsonl")):
+            fail("readers: the --tcpdump run wrote no trace.jsonl")
+        run_dirs = list(runner["runs"]) + [tout["dir"]]
+
+        # -- the store command: rebuild, verify, compact --dry-run -------
+        counts = {}
+        for label, base in (("runner", rstore), ("campaign", cstore)):
+            rc, built, secs[f"{label} rebuild"] = store_cmd(
+                "index", "--rebuild", "--store", base)
+            rc2, ver, secs[f"{label} verify"] = store_cmd(
+                "index", "--store", base)
+            tree = sorted(os.path.relpath(r, base)
+                          for r in forensics.all_runs(base))
+            fold = store_index.fold(base)
+            rows = sorted(store_index.kind_dirs(fold, "run"))
+            if rc or rc2 or not built["ok"] or not ver["ok"] or \
+                    rows != tree or ver["index_runs"] != len(tree):
+                fail(f"readers: store index on the {label} store: exit "
+                     f"{rc}/{rc2}, {built}, {ver}, index rows {len(rows)} "
+                     f"vs all_runs {len(tree)}")
+            rc3, dry, secs[f"{label} compact"] = store_cmd(
+                "compact", "--dry-run", "--store", base)
+            after = [os.path.relpath(r, base)
+                     for r in forensics.all_runs(base)]
+            if rc3 or not dry["ok"] or not dry["dry_run"] or \
+                    sorted(after) != tree or \
+                    dry["compacted"] + dry["skipped_failures"] != \
+                    max(0, len(tree) - 32) or \
+                    (len(tree) <= 32 and dry["compacted"]):
+                fail(f"readers: store compact --dry-run on the {label} "
+                     f"store: {dry}")
+            # the walk path (no index) gives the index's rows: a copy
+            # without the index (histories left empty: the walk reads
+            # only that they exist; directory times are kept)
+            t0 = time.perf_counter()
+            walk = tempfile.mkdtemp(prefix="chip-smoke-walk-")
+            try:
+                shutil.copytree(base, os.path.join(walk, "s"),
+                                symlinks=True,
+                                ignore=shutil.ignore_patterns(
+                                    store_index.INDEX_NAME + "*"),
+                                copy_function=copy_but_histories)
+                walk_rows = serve._run_rows(os.path.join(walk, "s"))
+            finally:
+                shutil.rmtree(walk, ignore_errors=True)
+            secs[f"{label} walk"] = time.perf_counter() - t0
+            if walk_rows != store_index.serve_run_rows(fold):
+                fail(f"readers: the {label} store's walk rows differ "
+                     "from the index's")
+            counts[label] = (len(tree), dry["compacted"])
+
+        # -- serve on port 0, each store in a process of its own ---------
+        urls = {}
+        t0 = time.perf_counter()
+        for label, base in (("runner", rstore), ("campaign", cstore)):
+            proc = subprocess.Popen(
+                [sys.executable, "-u", "-m", "jepsen_etcd_tpu_torch",
+                 "serve", "--store", base, "-p", "0"],
+                cwd=root, stdout=subprocess.PIPE,
+                stderr=subprocess.DEVNULL, text=True)
+            procs.append(proc)
+            urls[label] = proc
+        for label, proc in list(urls.items()):
+            line = proc.stdout.readline()
+            if "http://" not in line:
+                fail(f"readers: serve printed {line!r}")
+            urls[label] = line.split("http://", 1)[1].split("/", 1)[0]
+        secs["serve start"] = time.perf_counter() - t0
+
+        def get(label: str, path: str, name: str) -> str:
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(f"http://{urls[label]}{path}",
+                                        timeout=60) as resp:
+                body = resp.read().decode()
+                if resp.status != 200:
+                    fail(f"readers: GET {path}: {resp.status}")
+            secs[name] = time.perf_counter() - t0
+            return body
+
+        index = get("runner", "/", "/")
+        agg1 = get("campaign", f"/aggregate?page=1&per={READERS_PER}",
+                   "/aggregate p1")
+        agg2 = get("campaign", f"/aggregate?page=2&per={READERS_PER}",
+                   "/aggregate p2")
+        n_camp = counts["campaign"][0]
+        if f"rows 1–{READERS_PER} of {n_camp}" not in agg1 or \
+                f"rows {READERS_PER + 1}–" not in agg2 or \
+                "Campaign perf trends" not in agg1 or \
+                "ledger" not in agg1:
+            fail(f"readers: /aggregate pages over {n_camp} runs")
+        engines = {}
+        for rdir in run_dirs:
+            rel = os.path.relpath(rdir, rstore)
+            if rel not in index:
+                fail(f"readers: / lists no {rel}")
+            page = get("runner", f"/{rel}/", f"run {len(engines) + 1}")
+            with open(os.path.join(rdir, "results.json")) as f:
+                faults, engines[rel] = page_checks(page, json.load(f))
+            if faults:
+                fail(f"readers: the run page of {rel}: {faults}")
+        base_rel = os.path.relpath(runner["runs"][0], rstore)
+        if "mxu-wave" not in engines[base_rel]:
+            fail(f"readers: the BASELINE run's page shows engines "
+                 f"{engines[base_rel]}")
+        trace_rel = os.path.relpath(tout["dir"], rstore)
+        trace = get("runner", f"/{trace_rel}/?trace", "trace")
+        if "events shown" not in trace or "<td>" not in trace:
+            fail("readers: the trace page shows no events")
+        live = get("campaign", "/live", "/live")
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(f"http://{urls['campaign']}/live?sse=1",
+                                    timeout=60) as resp:
+            line = resp.readline()
+            while line and not line.startswith(b"data: "):
+                line = resp.readline()
+        secs["sse tick"] = time.perf_counter() - t0
+        tick = json.loads(line[len(b"data: "):].decode())
+        if "EventSource" not in live or not tick.get("campaign") or \
+                not os.path.isdir(os.path.join(cstore, tick.get("dir", ""))):
+            fail(f"readers: /live or its SSE tick: {tick}")
+
+        # -- the linter over the port's tree ----------------------------
+        t0 = time.perf_counter()
+        lint = subprocess.run(
+            [sys.executable, "-m", "jepsen_etcd_tpu_torch.lint", "--json"],
+            cwd=root, capture_output=True, text=True, timeout=300)
+        secs["lint"] = time.perf_counter() - t0
+        report = json.loads(lint.stdout or "{}")
+        if lint.returncode != 0 or report.get("errors") != 0:
+            fail(f"readers: the linter: exit {lint.returncode}, "
+                 f"{report.get('errors')} error(s)\n{lint.stderr[-2000:]}")
+        print(f"readers on {card}: runner store {counts['runner'][0]} runs, "
+              f"campaign store {counts['campaign'][0]} runs (compact "
+              f"--dry-run at --keep 32 would demote "
+              f"{counts['campaign'][1]}, deletes nothing); engines on the "
+              f"BASELINE run page {sorted(set(engines[base_rel]))}; SSE "
+              f"tick active={tick.get('active')} done={tick.get('done')}; "
+              f"lint {report['files']} files, {report['suppressed']} "
+              f"suppressed, 0 errors; seconds " + ", ".join(
+                  f"{k} {v:.3f}" for k, v in secs.items()), flush=True)
+    finally:
+        for proc in procs:
+            proc.send_signal(signal.SIGINT)
+            try:
+                proc.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(rstore, ignore_errors=True)
+        shutil.rmtree(cstore, ignore_errors=True)
 
 
 def frame_tables_entry(p, card: str, dev, launches: int) -> dict:
@@ -3736,6 +3998,10 @@ def main() -> None:
     marks.append((14, time.perf_counter()))
     live = live_phase(card, torch.device("cuda", 0))
     batch_entries[0]["launches"] += live["launches"]
+
+    # -- 15. the readers: store index, serve, lint ------------------------
+    marks.append((15, time.perf_counter()))
+    readers_phase(card, runner, camp)
 
     marks.append((None, time.perf_counter()))
     print("section seconds on " + card + ": " + ", ".join(

@@ -93,6 +93,7 @@ class SessionGuarantees(Checker):
             # from the dict stream rather than skipping the check
             from ..core.history import History, columns_of
             if isinstance(history, History):
+                # graftlint: ignore[COL001] dict-only fallback — no columns exist yet, this path builds them
                 ops = history.ops
             else:
                 ops = list(history)

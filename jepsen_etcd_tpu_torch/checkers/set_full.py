@@ -520,7 +520,6 @@ def _analyze_columnar(h: History, _scan=None) -> dict:
         if use_chain:
             plens_pay = np.fromiter(map(len, payloads), dtype=np.int64,
                                     count=nR)
-            # graftlint: ignore[JAX002] host list -> array; retry loop runs at most twice (chain then full)
             anchor_np = np.asarray(anchor, dtype=bool)
             hf = anchor_np | (plens_pay > 0)     # run heads
             if nR:

@@ -15,7 +15,8 @@ the simulated MVCC store. The checkers run on ``--device`` (default
 ``--client-type http|grpc`` drives real etcd: an external cluster at
 ``--endpoint`` (``--db live``) or processes this machine spawns and
 faults (``--db local``); ``--soak`` checks one long-lived cluster window
-by window. The serve and store commands are not ported yet.
+by window; serve browses a store over local HTTP; store indexes and
+compacts one.
 """
 
 from __future__ import annotations
@@ -299,6 +300,11 @@ def build_parser() -> argparse.ArgumentParser:
     wa.add_argument("--token", default=None,
                     help="pool auth token (default: env "
                          "JEPSEN_ETCD_TPU_SERVICE_TOKEN)")
+    srv = sub.add_parser("serve", help="serve the store dir over HTTP "
+                                       "(etcd.clj:250-252)")
+    srv.add_argument("--store", default="store")
+    srv.add_argument("-p", "--port", type=int, default=8080)
+    srv.add_argument("-b", "--bind", default="127.0.0.1")
     gw = sub.add_parser("gateway",
                         help="serve an etcd v3 JSON-gateway endpoint "
                              "backed by the simulated MVCC store (the "
@@ -335,6 +341,27 @@ def build_parser() -> argparse.ArgumentParser:
     tl.add_argument("--no-index", action="store_true", dest="no_index",
                     help="bypass the store index and walk the tree "
                          "(output is bit-identical either way)")
+    so = sub.add_parser("store",
+                        help="artifact-store maintenance: build/verify "
+                             "the sqlite run index, or compact old "
+                             "passing runs to summaries; does no "
+                             "device work")
+    so.add_argument("action", choices=("index", "compact"),
+                    help="index: verify (default) or --rebuild the "
+                         "run index; compact: demote old passing runs "
+                         "to index rows + summary files")
+    so.add_argument("--store", default="store",
+                    help="store base directory (default: store)")
+    so.add_argument("--rebuild", action="store_true",
+                    help="with `index`: backfill the index from the "
+                         "tree in one transaction (also recurses into "
+                         "guided sub-stores)")
+    so.add_argument("--keep", type=int, default=32,
+                    help="with `compact`: newest N runs spared "
+                         "regardless of verdict (default 32)")
+    so.add_argument("--dry-run", action="store_true", dest="dry_run",
+                    help="with `compact`: report what would be "
+                         "demoted without deleting anything")
     rp = sub.add_parser("replay",
                         help="re-execute a minimized repro "
                              "(shrink.json): regenerate the history "
@@ -546,9 +573,15 @@ def main(argv=None) -> int:
         level=logging.INFO,
         format="%(asctime)s %(levelname)s %(name)s: %(message)s")
     args = build_parser().parse_args(argv)
+    if args.command == "serve":
+        from .serve import serve_store
+        return serve_store(args.store, args.port, args.bind)
     if args.command == "tel":
         from .tel_cli import run as tel_run
         return tel_run(args)
+    if args.command == "store":
+        from .runner.store_index import cli_store
+        return cli_store(args)
     if args.command == "worker-agent":
         from .runner.host_agent import agent_main
         return agent_main(args.connect, args.host, token=args.token)

@@ -173,12 +173,12 @@ class MvccModel:
             links.sort()
             # host-side numpy only: per-key chains are tiny and never
             # cross a device boundary
-            arr = np.array(links, np.int64).reshape(len(links), 3)  # graftlint: ignore[JAX002] host numpy, no device transfer
+            arr = np.array(links, np.int64).reshape(len(links), 3)
             m.chains[k] = {"ver": arr[:, 0], "inv": arr[:, 1],
                            "ok": arr[:, 2]}
         for k in m.write_invokes:
             m.write_invokes[k] = np.sort(
-                np.array(m.write_invokes[k], np.int64))  # graftlint: ignore[JAX002] host numpy, no device transfer
+                np.array(m.write_invokes[k], np.int64))
         m.revisions = np.unique(m.revisions)
         m.windows = _fault_windows(cols)
         # lease sessions: per-proc acquire/release state machine (one

@@ -60,6 +60,7 @@ def _build_lib() -> Optional[ctypes.CDLL]:
             logger.warning("native oracle build failed (%r); "
                            "using the Python oracle", e)
             return None
+    # graftlint: ignore[TORCH003] built once per process: get_lib memoizes it under its lock
     lib = ctypes.CDLL(so)
     fn = lib.wgl_oracle_check
     fn.restype = ctypes.c_int32

@@ -10,6 +10,7 @@ raises: there is no fallback for CUDA tensors.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -25,7 +26,6 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 _lock = threading.Lock()
-_libs: dict = {}
 
 
 def _nvcc() -> str:
@@ -59,22 +59,21 @@ def build(name: str) -> str:
     return so
 
 
-def _lib(name: str, signatures: dict) -> ctypes.CDLL:
+@functools.lru_cache(maxsize=None)
+def _lib(name: str) -> ctypes.CDLL:
     """Build (once) and load ``csrc/<name>.cu``, with the argument types
-    of its C functions set from ``signatures`` (function -> (restype,
-    argtypes)); every library also exports ``<name>_error_string``."""
+    of its C functions set from ``_SIGNATURES[name]`` (function ->
+    (restype, argtypes)); every library also exports
+    ``<name>_error_string``. The lock keeps two threads from building
+    one source at once."""
     with _lock:
-        lib = _libs.get(name)
-        if lib is None:
-            lib = ctypes.CDLL(build(name))
-            signatures = dict(signatures)
-            signatures[f"{name}_error_string"] = (ctypes.c_char_p,
-                                                  [ctypes.c_int])
-            for fn, (restype, argtypes) in signatures.items():
-                getattr(lib, fn).restype = restype
-                getattr(lib, fn).argtypes = argtypes
-            _libs[name] = lib
-        return lib
+        lib = ctypes.CDLL(build(name))
+    signatures = dict(_SIGNATURES[name])
+    signatures[f"{name}_error_string"] = (ctypes.c_char_p, [ctypes.c_int])
+    for fn, (restype, argtypes) in signatures.items():
+        getattr(lib, fn).restype = restype
+        getattr(lib, fn).argtypes = argtypes
+    return lib
 
 
 def _check(lib: ctypes.CDLL, name: str, err: int) -> None:
@@ -94,6 +93,8 @@ _INDEL = {"indel_bits_launch": (_I, [_P, _I, _P, _P, _I, _P, _P, _I, _P,
           "indel_bits_state_words": (ctypes.c_longlong, [_I])}
 _DRAIN = {"drain_register_launch": (_I, [_P] * 13 + [_I, _I, _I, _I, _P]),
           "drain_register_smem_max": (_I, [])}
+_SIGNATURES = {"wgl_wave": _WGL, "indel_bits": _INDEL,
+               "drain_register": _DRAIN}
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -105,7 +106,7 @@ def wgl_wave(tab: torch.Tensor, scal: torch.Tensor, out: torch.Tensor,
     """Launch csrc/wgl_wave.cu on the current stream: tab [K, r_pad,
     TLANES], scal [K, r_pad, 8] -> out [K, 4], all int32 on one CUDA
     device (the caller checks shapes)."""
-    lib = _lib("wgl_wave", _WGL)
+    lib = _lib("wgl_wave")
     with torch.cuda.device(tab.device):
         err = lib.wgl_wave_launch(tab.data_ptr(), scal.data_ptr(),
                                   out.data_ptr(), tab.shape[0],
@@ -116,7 +117,7 @@ def wgl_wave(tab: torch.Tensor, scal: torch.Tensor, out: torch.Tensor,
 def wgl_wave_phase_names() -> list:
     """The phases the profiling instantiation of csrc/wgl_wave.cu times,
     in the order of its cycle counts."""
-    lib = _lib("wgl_wave", _WGL)
+    lib = _lib("wgl_wave")
     return [lib.wgl_wave_phase_name(i).decode()
             for i in range(lib.wgl_wave_phases())]
 
@@ -130,7 +131,7 @@ def wgl_wave_profile(tab: torch.Tensor, scal: torch.Tensor,
     filled states and the kept candidates, summed over the waves. Not
     counted in ``wgl_mxu.LAUNCHES``: it is a measurement, not the main
     path."""
-    lib = _lib("wgl_wave", _WGL)
+    lib = _lib("wgl_wave")
     with torch.cuda.device(tab.device):
         err = lib.wgl_wave_profile(tab.data_ptr(), scal.data_ptr(),
                                    out.data_ptr(), prof.data_ptr(),
@@ -141,7 +142,7 @@ def wgl_wave_profile(tab: torch.Tensor, scal: torch.Tensor,
 
 def indel_smem_optin(device: torch.device) -> int:
     """Bytes of dynamic shared memory one block may opt in to."""
-    lib = _lib("indel_bits", _INDEL)
+    lib = _lib("indel_bits")
     index = torch.device(device).index
     got = lib.indel_bits_smem_optin(
         torch.cuda.current_device() if index is None else index)
@@ -155,7 +156,7 @@ def indel_state_words(n: int) -> int:
     canonical log of n codes (the kernel's layout, read from the
     kernel's source): the size of the log's slice of the global scratch
     (times 8: the bytes of shared memory it takes)."""
-    return int(_lib("indel_bits", _INDEL).indel_bits_state_words(n))
+    return int(_lib("indel_bits").indel_bits_state_words(n))
 
 
 def indel_bits(order: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
@@ -165,7 +166,7 @@ def indel_bits(order: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
     ``scratch`` is a [K, indel_state_words(n)] int64 tensor for the
     global-memory regime (the launch refuses another width), or None for
     the shared-memory one (the caller checks shapes)."""
-    lib = _lib("indel_bits", _INDEL)
+    lib = _lib("indel_bits")
     with torch.cuda.device(order.device):
         err = lib.indel_bits_launch(
             order.data_ptr(), order.shape[0], lo.data_ptr(), hi.data_ptr(),
@@ -178,7 +179,7 @@ def indel_bits(order: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
 def drain_smem_max() -> int:
     """Bytes of shared memory csrc/drain_register.cu's machine may take
     in one block; past it the launch needs a global scratch."""
-    return int(_lib("drain_register", _DRAIN).drain_register_smem_max())
+    return int(_lib("drain_register").drain_register_smem_max())
 
 
 def drain_register(state0: tuple, planes: tuple, flags: tuple,
@@ -190,7 +191,7 @@ def drain_register(state0: tuple, planes: tuple, flags: tuple,
     memory, or None for shared memory (the launch refuses a machine past
     ``drain_smem_max()``). All on one CUDA device, contiguous (the
     caller checks shapes and types)."""
-    lib = _lib("drain_register", _DRAIN)
+    lib = _lib("drain_register")
     N, S = planes[0].shape
     K = state0[0].shape[1]
     with torch.cuda.device(out.device):

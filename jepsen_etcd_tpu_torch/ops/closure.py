@@ -99,7 +99,9 @@ def _closure_device(a: torch.Tensor, iters: int,
         for i, dev in enumerate(lanes):
             rl = r.to(dev)
             blocks.append(_square(rl[:, i * step:(i + 1) * step], rl))
+        # graftlint: ignore[TORCH001] fixpoint squaring: at most ceil(log2 m) rounds, each one squaring per lane and its fixpoint count
         cur = sum(int(torch.count_nonzero(blk)) for blk in blocks)
+        # graftlint: ignore[TORCH001] fixpoint squaring: one gather of the lanes' blocks per round
         r = torch.cat([blk.to(a.device) for blk in blocks], dim=1)
         squarings += 1
         if cur == prev:   # fixpoint: the squaring added no pair
@@ -122,17 +124,22 @@ def _closure_from_edges(et_edges: list, lvl_mask: np.ndarray, m: int,
     nodes (< n <= m), so no index is ever out of range."""
     n_types = lvl_mask.shape[1] - 1
     et = torch.zeros((n_types, m, m), dtype=torch.bool, device=dev)
+    typed = []
     for t, e in enumerate(et_edges):
         if len(e):
-            idx = torch.from_numpy(
-                np.asarray(e, np.int64).reshape(-1, 2)).to(dev)
-            et[t, idx[:, 0], idx[:, 1]] = True
+            ij = np.asarray(e, np.int64).reshape(-1, 2)
+            typed.append(np.column_stack([np.full(len(ij), t, np.int64),
+                                          ij]))
+    if typed:   # every type's edges in one transfer
+        idx = torch.from_numpy(np.concatenate(typed)).to(dev)
+        et[idx[:, 0], idx[:, 1], idx[:, 2]] = True
     inv = torch.from_numpy(inv_v).to(dev)
     comp = torch.from_numpy(comp_v).to(dev)
     rt = (comp[:, None] < inv[None, :]) & \
         ~torch.eye(m, dtype=torch.bool, device=dev)
     planes = []
     for row in lvl_mask:
+        # graftlint: ignore[TORCH001] one plane per Adya level: a handful, each ORed from the type planes on the card
         x = torch.zeros((m, m), dtype=torch.bool, device=dev)
         for t in range(n_types):
             if row[t]:

@@ -344,6 +344,7 @@ def build_tables(i32: torch.Tensor, u16: torch.Tensor, r_pad: int,
     cols = [torch.where(inrow, u[:, :, C_SHIFT], 0),
             torch.where(inrow, relb, 0)]
     for wi in range(4):
+        # graftlint: ignore[TORCH001] four fixed columns, once per batch: the loop only spells out four ops
         cols.append(torch.where(inrow, ums[wi], 0) if wi < nw else zero)
     cols.append(R[:, :, 0].expand(K, r_pad))
     cols += [zero] * (SCAL_COLS - len(cols))

@@ -556,7 +556,7 @@ def run_campaign(specs: list[dict], *, pool: int = 4,
     Every spec's ``device`` is resolved first: with no card and a spec
     that asks for one, this raises before anything starts."""
     from ..device import resolve_device
-    for dev in {s["opts"].get("device") for s in specs}:
+    for dev in sorted({s["opts"].get("device") for s in specs}, key=str):
         resolve_device(dev)
     t0 = time.monotonic()
     cdir = make_store_dir(store_base, name)

@@ -27,10 +27,8 @@ increasing ``seq`` inside the write transaction; a reader folds
 ``seq > hwm`` only. A full ``rebuild`` bumps the ``epoch`` meta key so
 stale folds drop their cache instead of merging across generations.
 
-No wall clock, no randomness — safe to import anywhere. The port's
-copy: ``verify`` walks the tree with its own ``_all_runs``; the
-``store`` CLI subcommand (``cli_store``) and the readers' serve/tel
-front ends are not ported yet (ROADMAP A item 8).
+No wall clock, no randomness, no device work — safe to import
+anywhere.
 """
 
 from __future__ import annotations
@@ -695,25 +693,6 @@ def rebuild(base: str, recurse: bool = True) -> dict:
     return out
 
 
-def _all_runs(store_base: str) -> list:
-    """All saved run dirs under a store base, oldest first (the
-    reference's ``forensics.all_runs``; the port has no forensics
-    module yet)."""
-    out = []
-    if not os.path.isdir(store_base):
-        return out
-    for test_name in sorted(os.listdir(store_base)):
-        tdir = os.path.join(store_base, test_name)
-        if not os.path.isdir(tdir) or test_name == "latest":
-            continue
-        for run in sorted(os.listdir(tdir)):
-            rdir = os.path.join(tdir, run)
-            if run != "latest" and os.path.isdir(rdir) and \
-                    os.path.exists(os.path.join(rdir, "history.jsonl")):
-                out.append(rdir)
-    return out
-
-
 def _fingerprint(rels) -> str:
     return hashlib.sha256(
         "\n".join(sorted(rels)).encode()).hexdigest()[:16]
@@ -725,11 +704,12 @@ def verify(base: str) -> dict:
     exactly the run dirs a fresh walk finds. Compacted rows are
     expected to be absent from the walk — their history.jsonl is gone
     by design."""
+    from ..forensics import all_runs
     if not has_index(base):
         return {"ok": False, "base": base,
                 "error": f"no {INDEX_NAME} under {base!r} "
                          "(run `store index --rebuild`)"}
-    tree = {os.path.relpath(r, base) for r in _all_runs(base)}
+    tree = {os.path.relpath(r, base) for r in all_runs(base)}
     f = fold(base)
     live_rows = sorted(d for (k, d), v in f.rows.items()
                        if k == "run" and not v["compacted"])
@@ -1174,3 +1154,28 @@ def compact(base: str, keep: int = COMPACT_KEEP_NEWEST,
             "skipped_failures": skipped_failures,
             "kept_newest": min(keep, len(runs)) if keep > 0 else 0,
             "removed_entries": removed_files, "dry_run": dry_run}
+
+
+# -- the `store` CLI subcommand ----------------------------------------------
+
+def cli_store(args) -> int:
+    """``python -m jepsen_etcd_tpu_torch store {index,compact}`` — the
+    operator surface: backfill/verify the index, or run a retention
+    pass. Dispatched by cli.main; does no device work."""
+    from . import telemetry
+    tel = telemetry.Telemetry(None)
+    telemetry.set_current(tel)
+    try:
+        base = args.store
+        if args.action == "index":
+            out = rebuild(base) if args.rebuild else verify(base)
+        else:
+            out = compact(base, keep=args.keep, dry_run=args.dry_run)
+        out = dict(out,
+                   counters=dict((tel.summary() or {})
+                                 .get("counters") or {}))
+        print(json.dumps(out, indent=2, sort_keys=True))
+        return 0 if out.get("ok") else 1
+    finally:
+        telemetry.set_current(telemetry.NULL)
+        tel.close()

@@ -170,6 +170,9 @@ REGISTRY = {
                                   # added beyond one-per-group (Σ of
                                   # lanes-1), balancing the per-device
                                   # dispatch ledger
+        "service.wgl_wave_launches",  # wave-kernel launches a tick's
+                                  # jobs made, each counted on its own
+                                  # thread
         "service.pack_s",         # host packing wall per tick (the
                                   # half double-buffering overlaps with
                                   # the previous tick's device wall)

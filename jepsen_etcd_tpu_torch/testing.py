@@ -419,8 +419,8 @@ def _plant_g1c(rng, order, outs, wf, reads_of, after_of):
         for k, seen in reads_of(mops):
             if k in b_writes:
                 continue
-            for a in {writers.get((k, x)) for x in seen}:
-                if a is None or pos[a] >= pos[b]:
+            for a in sorted({writers.get((k, x)) for x in seen} - {None}):
+                if pos[a] >= pos[b]:
                     continue
                 a_writes = {k2 for f, k2, _ in outs[a] if f == wf}
                 for j in sorted({m[1] for m in outs[a] if m[0] == "r"}

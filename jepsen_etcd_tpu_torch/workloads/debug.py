@@ -12,7 +12,7 @@ which run, txn, and process produced it (the reference used this to
 track down an etcdctl state-leak across runs, etcd.clj:259-346).
 ``decode_get`` strips the wrapper on read so checkers see clean values;
 the raw responses land on the op's ``debug`` field for the forensics
-helpers (the reference's ``forensics.py``; not ported yet).
+helpers (jepsen_etcd_tpu_torch.forensics).
 """
 
 from __future__ import annotations

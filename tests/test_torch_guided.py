@@ -8,8 +8,9 @@ failure at the same run, with ``guided.json``'s ledger, signatures,
 envelope and corpus equal to the reference's; its minimized repro's
 ``shrink.json`` equals the reference's (the ``repro`` line names this
 package) and replays; and ``tel --corpus`` / ``--coverage`` read the
-same. The reference test's ``aggregate_html`` checks wait for the
-port's ``serve.py`` (ROADMAP A item 8) and are left out here."""
+same. The reference test's ``aggregate_html`` checks run against the
+port's ``serve.py`` in ``tests/test_torch_readers.py`` and
+``tests/test_torch_serve.py``."""
 
 import json
 import os

@@ -53,6 +53,19 @@ PORT_MODULES = [
     "jepsen_etcd_tpu_torch.runner.host_agent",
     "jepsen_etcd_tpu_torch.runner.wall",
     "jepsen_etcd_tpu_torch.tel_cli",
+    "jepsen_etcd_tpu_torch.forensics",
+    "jepsen_etcd_tpu_torch.serve",
+    "jepsen_etcd_tpu_torch.lint",
+    "jepsen_etcd_tpu_torch.lint.__main__",
+    "jepsen_etcd_tpu_torch.lint.engine",
+    "jepsen_etcd_tpu_torch.lint.callgraph",
+    "jepsen_etcd_tpu_torch.lint.policy",
+    "jepsen_etcd_tpu_torch.lint.rules",
+    "jepsen_etcd_tpu_torch.lint.rules.col",
+    "jepsen_etcd_tpu_torch.lint.rules.det",
+    "jepsen_etcd_tpu_torch.lint.rules.tel",
+    "jepsen_etcd_tpu_torch.lint.rules.thr",
+    "jepsen_etcd_tpu_torch.lint.rules.torch_rules",
     "jepsen_etcd_tpu_torch.simbatch",
     "jepsen_etcd_tpu_torch.simbatch.heap",
     "jepsen_etcd_tpu_torch.simbatch.engine",

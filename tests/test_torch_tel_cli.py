@@ -6,8 +6,8 @@ print on the same artifacts; the collector folds a worker's datagrams
 into ``live.json`` as the reference's does; and a pooled campaign with
 the live plane on carries trace ids, per-row percentiles and net
 counters that ``tel --ledger`` and ``--coverage`` verify. The
-reference's ``/live`` SSE cases wait for the port's ``serve.py``
-(ROADMAP A item 8)."""
+reference's ``/live`` SSE cases run against the port's ``serve.py`` in
+``tests/test_torch_serve.py``."""
 
 import json
 import os
