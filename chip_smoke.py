@@ -27,7 +27,10 @@ committed txns (clean and with an anomaly planted), the card against
 the host, and the closure's crossover. Last the simulator
 (``simbatch/``): the register drain kernel drain_register held against
 its plain version at the reference bench's generation shape (16 seeds x
-7,520 completions), at 256 seeds and on a fuzz, both timed; the
+7,520 completions), at 256 seeds, on a fuzz, on 64 random keys and on
+edge inputs, in two blockings, both plane layouts and on unaligned
+planes; a link of its chain measured on one chain; timed through its
+wrapper and alone at the first two, and with every row timed out; the
 epoch-v2 and epoch-v3 golden pins reproduced with generation on the
 card; epoch-v3 timed with its stages; the threefry draws held against
 the CPU's; simulated histories checked (a single key through
@@ -87,6 +90,7 @@ from __future__ import annotations
 import atexit
 import contextlib
 import io
+import itertools
 import json
 import os
 import random
@@ -172,8 +176,8 @@ BF16_FLOPS_PER_S = 989e12
 #: sub-batches of 2 (bench.py:885-930 runs 16: its check is ~30,000
 #: ladder waves at 4 seeds). The drain's fuzz: 24 lanes over 12 keys,
 #: partition and kill with a flat 0.3 timeout rate in open windows and
-#: stale reads injected, and random planes over 64 keys (the machine
-#: past shared memory)
+#: stale reads injected, and random planes over 64 keys (a block's keys
+#: over more than one warp of lanes)
 GEN_OPTS = {"workload": "register", "nodes": ["n1", "n2", "n3"],
             "concurrency": 16, "rate": 1000.0, "time_limit": 7.52}
 GEN_SEEDS, GEN_SCALE_SEEDS, GEN_SCALE_LIMIT, GEN_REPS = 16, 256, 1.0, 5
@@ -184,6 +188,24 @@ DRAIN_FUZZ = {"workload": "register", "lanes": 24, "keys": 12,
               "nemeses": ("partition", "kill"), "drop_prob": 0.3,
               "inject_stale_reads": True}
 DRAIN_FUZZ_SEEDS, DRAIN_WIDE_KEYS = 64, 64
+#: the drain's edge inputs (random planes): (label, seed, (N, S, K),
+#: random_drain_inputs' options). One chain a seed, more keys than a
+#: block has lanes, 90 % of the rows on one key, fewer rows than a tile,
+#: an odd seed count (rows that start mid-word in the flags' planes)
+DRAIN_EDGES = (("K = 1", 2, (2_000, 16, 1), {}),
+               ("K = 400", 3, (3_000, 32, 400), {}),
+               ("90 % of the rows on key 0", 4, (3_000, 16, 4),
+                {"skew": 0.9}),
+               ("N = 100 < T", 5, (100, 16, 4), {}),
+               ("S = 33", 6, (1_000, 33, 4), {}))
+#: the drain's variants timed at the two generation shapes: (most lanes
+#: a block (None: the default), the planes in the other layout)
+DRAIN_TIMED = ((None, False), (None, True), (4, False), (32, False))
+#: launches in a row a drain timing takes (``back_to_back_ms``), each on
+#: the next of DRAIN_COPIES copies of its inputs and outputs: 16 copies
+#: of the generation shape's ~5 MB are more than the card's 50 MB of L2,
+#: so a launch reads its planes from HBM, as the bound counts them
+DRAIN_B2B, DRAIN_COPIES = 48, 16
 #: the committed pins (tests/test_simbatch.py:177-198 and
 #: tests/test_simbatch_jax.py:30-37): seed 0's sha and the sha of the 16
 #: seeds' shas joined, at the bench's dry shape
@@ -199,10 +221,19 @@ PINS = {"epoch-v2": (
 #: plane loads, two state loads, the compares and selects of the five
 #: outputs, four state stores when it writes, five output stores
 DRAIN_OPS_PER_STEP = 30
-#: the chain a step adds: the next step's state load waits for this
-#: one's store to the same word (a shared-memory store and load, ~30 SM
-#: cycles on Hopper)
+#: the yardstick of a machine kept in shared memory, printed beside the
+#: recount: N steps, each adding a shared-memory store and load of the
+#: machine (~30 SM cycles)
 DRAIN_CHAIN_CYCLES = 30
+#: a link of the recounted chain (a write or CAS that is not timed out,
+#: of one (seed, key)): in drain_register.cu's step the next val waits on
+#: DRAIN_LINK_OPS dependent operations, the compare of val with the CAS's
+#: old value, its and with the CAS bit, the or with the write bit and the
+#: select of the new value. A link's time on the card is measured in
+#: each run (``drain_link``): one seed, one key, DRAIN_LINK_ROWS rows,
+#: each a write or a CAS and none timed out, so that every row is a link
+#: of the one chain, the kernel's time over its links
+DRAIN_LINK_OPS, DRAIN_LINK_ROWS = 4, 65_536
 #: the checker service's campaign, after the reference's campaign cell
 #: (bench.py:937-1010: many runs' packs shipped to one service) and its
 #: service-scaling cell (bench.py:1013-1106: the same packs over one and
@@ -1312,67 +1343,217 @@ def gen_stage_timers(stages: dict):
             setattr(engine_v3, v, real[k])
 
 
-def drain_bound(N: int, S: int, K: int, mhz: float) -> dict:
+def drain_chain_links(args) -> int:
+    """The longest chain of the drain's inputs: the most steps, over
+    (seed, key), that are not timed out and write or CAS."""
+    import torch
+    from jepsen_etcd_tpu_torch.simbatch.engine import FC_CAS, FC_WRITE
+    k, f, to = args[4], args[5], args[9]
+    S, K = args[0].shape
+    carry = ~to & ((f == FC_WRITE) | (f == FC_CAS))
+    pair = k.long() + torch.arange(S, device=k.device) * K
+    counts = torch.bincount(pair[carry], minlength=S * K)
+    return int(counts.max()) if counts.numel() else 0
+
+
+def drain_bound(args, mhz: float, link_ns: float) -> dict:
     """The drain's least time on the card, counted from its inputs: the
     bytes of the planes read once (five int32 and two bool a step and
     seed) and the outputs written once (five int32), the state read
     once, against HBM; the body's operations against the 32-bit rate;
-    and, beside them, the chain of N dependent steps at
-    DRAIN_CHAIN_CYCLES each."""
+    and, beside them, the recounted chain (``drain_chain_links`` links
+    at ``link_ns`` each, as ``drain_link`` measures it) and that of a
+    machine in shared memory (N steps at DRAIN_CHAIN_CYCLES)."""
+    N, S = args[4].shape
+    K = args[0].shape[1]
     nbytes = N * S * (5 * 4 + 2) + N * S * 5 * 4 + 4 * S * K * 4
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = N * S * DRAIN_OPS_PER_STEP / ALU32_OPS_PER_S * 1e3
+    links = drain_chain_links(args)
     return {"bytes_ms": bytes_ms, "ops_ms": ops_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "chain_ms": N * DRAIN_CHAIN_CYCLES / (mhz * 1e6) * 1e3}
+            "bound_ms": max(bytes_ms, ops_ms), "links": links,
+            "chain_ms": links * link_ns * 1e-6,
+            "chain_old_ms": N * DRAIN_CHAIN_CYCLES / (mhz * 1e6) * 1e3}
+
+
+def misaligned(args):
+    """The drain's inputs copied into tensors that start one element
+    past an allocation's start (4 bytes for the int32 planes, 1 for the
+    flags), in the same layout: views the kernel's 4-byte copies meet
+    unaligned."""
+    import torch
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        if t.is_contiguous():
+            view = buf[1:].view(t.shape)
+        else:
+            view = buf[1:].view(t.shape[1], t.shape[0]).t()
+        view.copy_(t)
+        return view
+    return tuple(shifted(t) for t in args)
+
+
+def flipped(args):
+    """The drain's inputs with the planes in the other layout: (N, S)
+    contiguous where they were seed-major, seed-major where they were
+    (N, S)."""
+    def flip(t):
+        return t.contiguous() if not t.is_contiguous() \
+            else t.t().contiguous().t()
+    return tuple(args[:4]) + tuple(flip(t) for t in args[4:])
+
+
+def timed_out(args):
+    """The drain's inputs with every row timed out: no lane has a row to
+    walk, and the workers' passes are the whole kernel."""
+    import torch
+    return tuple(args[:9]) + (torch.ones_like(args[9]), args[10])
+
+
+#: the drain kernel's regimes: (label, lanes a block (None: the
+#: default, through ``drain_register_cuda``), a change of the inputs'
+#: layout or alignment)
+DRAIN_REGIMES = (("default blocking", None, None),
+                 ("32 lanes a block", 32, None),
+                 ("misaligned planes", None, misaligned),
+                 ("the other layout", None, flipped))
+
+
+def drain_default_lanes(S: int, K: int) -> int:
+    """The lanes a drain block takes by default on card 0."""
+    import torch
+    from jepsen_etcd_tpu_torch.simbatch import engine_v3
+    return engine_v3.drain_lanes(
+        S, K, torch.cuda.get_device_properties(0).multi_processor_count)
+
+
+def drain_launcher(args, lanes=None, copies: int = 1):
+    """Bare launches of drain_register.cu at ``lanes`` a block (None:
+    the default), the wrapper's checks and allocation done once,
+    outside; not counted in ``engine_v3.LAUNCHES``. Each call launches
+    on the next of ``copies`` copies of the inputs and outputs. Returns
+    the launch and the first copy's outputs ([5, N, S], seed-major when
+    the planes are)."""
+    import torch
+    from jepsen_etcd_tpu_torch.ops import _cuda
+    from jepsen_etcd_tpu_torch.simbatch import engine_v3
+    N, S = args[4].shape
+    K = args[0].shape[1]
+    seed_major = not args[4].is_contiguous()
+    blocking = engine_v3.drain_blocking(
+        S, K, lanes or drain_default_lanes(S, K))
+    runs = []
+    for c in range(copies):
+        ins = args if c == 0 else tuple(t.clone() for t in args)
+        out = torch.empty((5, S, N) if seed_major else (5, N, S),
+                          dtype=torch.int32, device=args[0].device)
+        runs.append((ins, out))
+    turn = itertools.cycle(runs)
+
+    def launch():
+        ins, out = next(turn)
+        _cuda.drain_register(tuple(ins[:4]), tuple(ins[4:9]),
+                             tuple(ins[9:]), out, blocking, seed_major)
+    out = runs[0][1]
+    return launch, out.transpose(1, 2) if seed_major else out
+
+
+def back_to_back_ms(fn, reps: int, runs: int = 5) -> float:
+    """Median over ``runs`` of the device time of ``reps`` launches in a
+    row over ``reps`` (CUDA events): a kernel's own time, the host's
+    work between launches hidden behind the queue."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(reps):
+            fn()
+        t1.record()
+        torch.cuda.synchronize()
+        times.append(t0.elapsed_time(t1) / reps)
+    return statistics.median(times)
 
 
 def hold_drain(args, what: str) -> int:
     """drain_register.cu against drain_register_reference on the same
-    planes, all five outputs, the machine in shared memory (where it
-    fits) and in the global scratch; returns the largest difference."""
+    planes, all five outputs, in each of DRAIN_REGIMES: the default
+    blocking (``drain_lanes``) and blocks of 32 lanes, planes at one
+    element past an aligned start and in the other layout (the
+    generator's are seed-major, random planes (N, S)); returns the
+    largest difference."""
     import torch
     from jepsen_etcd_tpu_torch.ops import _cuda
     from jepsen_etcd_tpu_torch.simbatch import engine_v3
     want = engine_v3.drain_register_reference(*args)
     N, S = args[4].shape
     K = args[0].shape[1]
-    smem = _cuda.drain_smem_max
-    errs = {}
-    for regime in ("shared", "global"):
-        if regime == "global":
-            _cuda.drain_smem_max = lambda: 0
-        elif 16 * K * engine_v3.DRAIN_THREADS > smem():
-            continue
-        try:
-            got = engine_v3._drain_register(*args)
-            torch.cuda.synchronize()
-        finally:
-            _cuda.drain_smem_max = smem
-        errs[regime] = int((got.long() - want.long()).abs().max()) \
+    errs, shapes = {}, {}
+    for label, lanes, change in DRAIN_REGIMES:
+        SB, KB, T = engine_v3.drain_blocking(
+            S, K, lanes or drain_default_lanes(S, K))
+        shapes[label] = (f"SB {SB} KB {KB} T {T}, "
+                         f"{_cuda.drain_smem(SB, KB, T)} B")
+        inputs = change(args) if change else args
+        if lanes is None:
+            got = engine_v3.drain_register_cuda(*inputs)
+        else:
+            run, got = drain_launcher(inputs, lanes)
+            run()
+        torch.cuda.synchronize()
+        errs[label] = int((got.long() - want.long()).abs().max()) \
             if got.numel() else 0
     to = args[9]
-    print(f"  drain_register {what}: N {N}, S {S}, K {K}, "
+    layout = "(N, S)" if args[4].is_contiguous() else "seed-major"
+    print(f"  drain_register {what}: N {N}, S {S}, K {K}, {layout} planes, "
           f"{int(to.sum())} timed-out rows, {int(args[10].sum())} stale "
-          f"gates; max_abs_err against the plain version on all five "
-          f"planes: {errs}", flush=True)
+          f"gates, {drain_chain_links(args)} links in the longest chain; "
+          f"blocks {shapes}; max_abs_err against the plain version on "
+          f"all five planes: {errs}", flush=True)
     if any(errs.values()):
         fail(f"drain_register disagrees with its plain version ({what})")
     return max(errs.values())
 
 
-def random_drain_inputs(seed: int, N: int, S: int, K: int, dev):
-    """Random drain planes (keys in [0, K), f in {read, write, cas},
-    values in [0, 5), a third of the rows timed out, half stale-gated)."""
+def drain_link(dev, mhz: float) -> dict:
+    """A link of the drain's chain, measured on the card: the kernel
+    alone on one seed, one key and DRAIN_LINK_ROWS rows, each a write or
+    a CAS and none timed out (every row a link of the one chain), over
+    its links; beside it the same rows all timed out (no link: the
+    workers' passes alone), which must take less for the reading to be
+    the chain's."""
+    from jepsen_etcd_tpu_torch.simbatch.engine import FC_READ, FC_WRITE
+    args = list(random_drain_inputs(7, DRAIN_LINK_ROWS, 1, 1, dev,
+                                    p_to=0.0))
+    args[5] = args[5].masked_fill(args[5] == FC_READ, FC_WRITE)
+    links = drain_chain_links(args)
+    ms = back_to_back_ms(drain_launcher(args)[0], 5)
+    idle_ms = back_to_back_ms(drain_launcher(timed_out(args))[0], 5)
+    ns = ms * 1e6 / links
+    return {"links": links, "ms": ms, "idle_ms": idle_ms, "ns": ns,
+            "cycles": ns * mhz / 1e3}
+
+
+def random_drain_inputs(seed: int, N: int, S: int, K: int, dev,
+                        skew: float = 0.0, p_to: float = 0.3):
+    """Random drain planes (keys in [0, K), a share ``skew`` of the rows
+    sent to key 0; f in {read, write, cas}, values in [0, 5), a share
+    ``p_to`` of the rows timed out, half stale-gated)."""
     import numpy as np
     import torch
     rng = np.random.default_rng(seed)
+    keys = rng.integers(0, K, (N, S))
+    keys = np.where(rng.random((N, S)) < skew, 0, keys)
     state = [np.zeros((S, K)), np.full((S, K), -1), np.zeros((S, K)),
              np.full((S, K), -1)]
-    planes = [rng.integers(0, K, (N, S)), rng.integers(0, 3, (N, S)),
+    planes = [keys, rng.integers(0, 3, (N, S)),
               rng.integers(0, 5, (N, S)), rng.integers(-1, 5, (N, S)),
               rng.integers(0, 5, (N, S))]
-    flags = [rng.random((N, S)) < 0.3, rng.random((N, S)) < 0.5]
+    flags = [rng.random((N, S)) < p_to, rng.random((N, S)) < 0.5]
     return tuple([torch.from_numpy(a.astype(np.int32)).to(dev)
                   for a in state + planes]
                  + [torch.from_numpy(a).to(dev) for a in flags])
@@ -1447,25 +1628,63 @@ def simulator_phase(card: str, dev) -> list:
                        (f"{GEN_SCALE_SEEDS} seeds", scale_args),
                        ("fuzz: 12 keys, partition and kill", fuzz_args),
                        (f"random planes, {DRAIN_WIDE_KEYS} keys",
-                        wide_args)):
+                        wide_args),
+                       *[(f"edge: {label}",
+                          random_drain_inputs(seed, *shape, dev, **kw))
+                         for label, seed, shape, kw in DRAIN_EDGES]):
         drain_err = max(drain_err, hold_drain(args, what))
+    link = drain_link(dev, mhz)
+    print(f"drain_register link on {card}: one chain of {link['links']} "
+          f"writes and CASes (one seed, one key) {link['ms']:.4f} ms alone "
+          f"(the same rows all timed out: {link['idle_ms']:.4f} ms, the "
+          f"workers alone), {link['ns']:.3f} ns a link = "
+          f"{link['cycles']:.1f} cycles at the top SM clock {mhz:.0f} MHz "
+          f"over {DRAIN_LINK_OPS} dependent operations", flush=True)
+    if link["idle_ms"] >= link["ms"]:
+        fail("the drain's one-chain input did not take longer than its "
+             "workers alone: the link reading is not the chain's")
     drain_t = {}
     for what, args in (("generation shape", gen_args),
                        (f"{GEN_SCALE_SEEDS} seeds", scale_args)):
         N, S = args[4].shape
-        b = drain_bound(N, S, args[0].shape[1], mhz)
-        k_ms = cuda_ms(lambda: engine_v3._drain_register(*args), 11)
+        K = args[0].shape[1]
+        b = drain_bound(args, mhz, link["ns"])
+        w_ms = cuda_ms(lambda: engine_v3._drain_register(*args), 11)
+        k_ms = back_to_back_ms(drain_launcher(args, None, DRAIN_COPIES)[0],
+                               DRAIN_B2B)
+        idle_ms = back_to_back_ms(
+            drain_launcher(timed_out(args), None, DRAIN_COPIES)[0],
+            DRAIN_B2B)
         p_ms = cuda_ms(lambda: engine_v3.drain_register_reference(*args),
-                       11)
-        drain_t[what] = (k_ms, p_ms, b)
-        print(f"drain_register at the {what} on {card}: kernel "
-              f"{k_ms:.4f} ms, plain torch loop {p_ms:.1f} ms (medians of "
-              f"11, CUDA events); N {N} steps x S {S} seeds, "
-              f"{k_ms * 1e6 / N:.1f} ns a step; bound {b['bound_ms']:.5f} "
-              f"ms (bytes {b['bytes_ms']:.5f} ms, operations "
-              f"{b['ops_ms']:.5f} ms); the chain of {N} dependent steps "
-              f"at {DRAIN_CHAIN_CYCLES} cycles and {mhz:.0f} MHz: "
-              f"{b['chain_ms']:.4f} ms", flush=True)
+                       1)
+        drain_t[what] = (w_ms, k_ms, p_ms, b)
+        regimes = {}
+        for lanes, flip in DRAIN_TIMED:
+            lanes = lanes or drain_default_lanes(S, K)
+            blocking = engine_v3.drain_blocking(S, K, lanes)
+            run = flipped(args) if flip else args
+            layout = "(N, S)" if run[4].is_contiguous() else "seed-major"
+            regimes[f"{lanes} lanes (SB, KB, T = {blocking}), "
+                    f"{layout}"] = back_to_back_ms(
+                        drain_launcher(run, lanes, DRAIN_COPIES)[0],
+                        DRAIN_B2B)
+        print(f"drain_register at the {what} on {card}: through "
+              f"_drain_register {w_ms:.4f} ms (median of 11, CUDA "
+              f"events: the key check's transfer, the allocation and the "
+              f"launch), kernel alone {k_ms:.4f} ms ({DRAIN_B2B} launches "
+              f"in a row over {DRAIN_COPIES} copies of the inputs, median "
+              f"of 5), every row timed out {idle_ms:.4f} ms (the workers "
+              f"alone); plain torch loop {p_ms:.1f} ms (one run); N {N} "
+              f"steps x S {S} seeds x K {K} keys, {w_ms * 1e6 / N:.1f} ns "
+              f"a step ({k_ms * 1e6 / N:.1f} alone); bound "
+              f"{b['bound_ms']:.5f} ms (bytes {b['bytes_ms']:.5f} ms, "
+              f"operations {b['ops_ms']:.5f} ms); the recounted chain of "
+              f"{b['links']} links at the measured {link['ns']:.3f} ns: "
+              f"{b['chain_ms']:.5f} ms (a machine in shared memory: {N} "
+              f"steps at {DRAIN_CHAIN_CYCLES} cycles and {mhz:.0f} MHz, "
+              f"{b['chain_old_ms']:.4f} ms); variants (kernel ms): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in regimes.items()),
+              flush=True)
 
     # -- (b) generation on the card ------------------------------------
     got = {"epoch-v2": pin_shas(generate_for_opts(dict(PIN_OPTS),
@@ -1661,14 +1880,16 @@ def simulator_phase(card: str, dev) -> list:
                                  f"ms a wave)" for k, v in walls.items())
           + "; same dicts", flush=True)
 
-    k_ms, p_ms, b = drain_t["generation shape"]
+    w_ms, k_ms, p_ms, b = drain_t["generation shape"]
     return [{"name": "drain_register", "route": "cuda",
              "source": "jepsen_etcd_tpu_torch/csrc/drain_register.cu",
              "replaces": "jepsen_etcd_tpu/simbatch/engine_jax.py:159",
              "launches": drain_launches, "max_abs_err": drain_err,
-             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b["bound_ms"],
+             "ms": w_ms, "kernel_ms": k_ms, "plain_ms": p_ms,
+             "bound_ms": b["bound_ms"],
              "bound_by": "bytes" if b["bytes_ms"] >= b["ops_ms"]
-             else "operations", "library_ms": None},
+             else "operations", "library_ms": None,
+             "chain_ms": b["chain_ms"]},
             {"name": "threefry_draws", "route": "torch",
              "source": "jepsen_etcd_tpu_torch/simbatch/threefry.py",
              "replaces": "jepsen_etcd_tpu/simbatch/engine_jax.py:81",
@@ -4005,7 +4226,9 @@ def main() -> None:
 
     marks.append((None, time.perf_counter()))
     print("section seconds on " + card + ": " + ", ".join(
-        f"{n} {t1 - t0:.1f}" for (n, t0), (_, t1) in zip(marks, marks[1:])),
+        f"{n} {t1 - t0:.1f}" for (n, t0), (_, t1) in zip(marks, marks[1:]))
+        + f"; all sections {marks[-1][1] - marks[0][1]:.1f} s (the "
+        f"script's limit: 1200 s)",
         flush=True)
     print(json.dumps({"kernels": [{
         "name": "wgl_wave", "route": "cuda",

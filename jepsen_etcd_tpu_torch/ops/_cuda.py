@@ -91,8 +91,9 @@ _INDEL = {"indel_bits_launch": (_I, [_P, _I, _P, _P, _I, _P, _P, _I, _P,
                                      ctypes.c_longlong, _P]),
           "indel_bits_smem_optin": (_I, [_I]),
           "indel_bits_state_words": (ctypes.c_longlong, [_I])}
-_DRAIN = {"drain_register_launch": (_I, [_P] * 13 + [_I, _I, _I, _I, _P]),
-          "drain_register_smem_max": (_I, [])}
+_DRAIN = {"drain_register_launch": (_I, [_P] * 12 + [_I] * 7 + [_P]),
+          "drain_register_smem": (_I, [_I] * 3),
+          "drain_register_max_lanes": (_I, [])}
 _SIGNATURES = {"wgl_wave": _WGL, "indel_bits": _INDEL,
                "drain_register": _DRAIN}
 
@@ -176,27 +177,34 @@ def indel_bits(order: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
     _check(lib, "indel_bits", err)
 
 
-def drain_smem_max() -> int:
-    """Bytes of shared memory csrc/drain_register.cu's machine may take
-    in one block; past it the launch needs a global scratch."""
-    return int(_lib("drain_register").drain_register_smem_max())
+def drain_smem(SB: int, KB: int, T: int) -> int:
+    """Bytes of shared memory a csrc/drain_register.cu block takes with
+    SB seeds and KB keys, tiles of T rows."""
+    return int(_lib("drain_register").drain_register_smem(SB, KB, T))
+
+
+def drain_max_lanes() -> int:
+    """(seed, key) lanes a csrc/drain_register.cu block may take (its
+    other warps are the workers)."""
+    return int(_lib("drain_register").drain_register_max_lanes())
 
 
 def drain_register(state0: tuple, planes: tuple, flags: tuple,
-                   out: torch.Tensor, scratch, threads: int) -> None:
+                   out: torch.Tensor, blocking: tuple,
+                   seed_major: bool = False) -> None:
     """Launch csrc/drain_register.cu on the current stream: ``state0``
     (ver0, val0, pver0, pval0) [S, K], ``planes`` (k, f, wv, co, cn)
     [N, S] int32, ``flags`` (to, sg) [N, S] bool -> out [5, N, S] int32;
-    ``scratch`` a [4, K, S] int32 tensor for the machine in global
-    memory, or None for shared memory (the launch refuses a machine past
-    ``drain_smem_max()``). All on one CUDA device, contiguous (the
-    caller checks shapes and types)."""
+    with ``seed_major`` the planes are transposes of contiguous [S, N]
+    tensors and ``out`` is [5, S, N]. ``blocking`` is (SB, KB, T): a
+    block owns SB seeds and KB keys, a lane per (seed, key), and walks
+    tiles of T rows (``engine_v3.drain_blocking``). All on one CUDA
+    device (the caller checks shapes, types and layouts)."""
     lib = _lib("drain_register")
     N, S = planes[0].shape
     K = state0[0].shape[1]
     with torch.cuda.device(out.device):
         err = lib.drain_register_launch(
             *[t.data_ptr() for t in (*state0, *planes, *flags, out)],
-            None if scratch is None else scratch.data_ptr(),
-            N, S, K, threads, _stream(out))
+            N, S, K, *blocking, int(seed_major), _stream(out))
     _check(lib, "drain_register", err)

@@ -12,9 +12,10 @@ the device, for every seed at once:
   the host in one transfer;
 - ``_drain_register``: the register machine over the N completions in
   drain order, one launch of the hand kernel csrc/drain_register.cu
-  (one thread per seed, the loop over N inside), which replaces the
-  reference's ``lax.scan``. On CPU tensors it is the plain version
-  ``drain_register_reference``, the scan's body as a torch loop.
+  (a lane per (seed, key), its machine in registers, the planes staged
+  a tile ahead), which replaces the reference's ``lax.scan``. On CPU
+  tensors it is the plain version ``drain_register_reference``, the
+  scan's body as a torch loop.
 
 Everything the reference does on the host in numpy is copied: the
 ``_scale_int`` float64 scaling, the cumsum timeline, the nemesis masks
@@ -54,8 +55,17 @@ _N_SUBKEYS = 12  # fixed split order below; part of the epoch
 #: launches of csrc/drain_register.cu in this process (the wrapper adds
 #: one per launch; a caller may reset it to 0 to count one run)
 LAUNCHES = 0
-#: threads of a drain block (one per seed)
-DRAIN_THREADS = 128
+#: threads of a drain block (csrc/drain_register.cu's THREADS): its
+#: lanes, one per (seed, key), are its first warps, the others (at least
+#: two) the workers that stage, sort and write out the tiles
+DRAIN_THREADS = 256
+#: (seed, key) lanes a drain block may take (the kernel's MAX_LANES)
+DRAIN_MAX_LANES = DRAIN_THREADS - 64
+#: (row, seed) entries of a drain tile at most: the rows T of a tile
+#: are this over the block's seeds, a multiple of 32 in [32, 512] (so a
+#: block takes at most this over 32 seeds); 116 bytes of shared memory
+#: an entry
+DRAIN_TILE_ENTRIES = 1024
 #: calls of ``_draw_device`` on a CUDA device (its threefry draws are
 #: PyTorch ops; chip_smoke.py reads it around the generator's run)
 DRAW_LAUNCHES = 0
@@ -162,17 +172,26 @@ def default_schedule_jax(config: BatchConfig, seed: int,
 
 
 def _check_drain_inputs(state0: tuple, planes: tuple, flags: tuple) \
-        -> None:
+        -> bool:
+    """Raise on inputs the drain does not take; return whether the
+    planes are seed-major (each the transpose of a contiguous [S, N]
+    tensor, as the generator builds them) rather than contiguous."""
     S, K = state0[0].shape if state0[0].dim() == 2 else (None, None)
     if S is None or K < 1:
         raise ValueError("the drain's state is [S, K] with K >= 1")
     N = planes[0].shape[0] if planes[0].dim() == 2 else None
     dev = state0[0].device
-    for t in (*state0, *planes, *flags):
+    seq = (*planes, *flags)
+    for t in (*state0, *seq):
         if t.device != dev:
             raise ValueError("the drain's tensors lie on one device")
-        if not t.is_contiguous():
-            raise ValueError("the drain takes contiguous tensors")
+    if not all(t.is_contiguous() for t in state0):
+        raise ValueError("the drain takes a contiguous state")
+    row_major = all(t.is_contiguous() for t in seq)
+    if not row_major and not all(t.dim() == 2 and t.t().is_contiguous()
+                                 for t in seq):
+        raise ValueError("the drain's planes are all contiguous or all "
+                         "transposes of contiguous [S, N] tensors")
     for t in state0:
         if t.dtype != torch.int32 or tuple(t.shape) != (S, K):
             raise TypeError("the drain's state is four int32 [S, K]")
@@ -183,9 +202,11 @@ def _check_drain_inputs(state0: tuple, planes: tuple, flags: tuple) \
         if t.dtype != torch.bool or tuple(t.shape) != (N, S):
             raise TypeError("the drain's flags are two bool [N, S]")
     if planes[0].numel():
-        lo, hi = torch.aminmax(planes[0])
-        if int(lo) < 0 or int(hi) >= K:
+        # one transfer: the launch waits on it
+        lo, hi = torch.stack(torch.aminmax(planes[0])).tolist()
+        if lo < 0 or hi >= K:
             raise ValueError("the drain's keys lie outside [0, K)")
+    return not row_major
 
 
 def drain_register_reference(ver0, val0, pver0, pval0, k_seq, f_seq,
@@ -241,6 +262,58 @@ def drain_register_reference(ver0, val0, pver0, pval0, k_seq, f_seq,
     return torch.stack([torch.stack(y) for y in ys])
 
 
+def drain_lanes(S: int, K: int, sms: int) -> int:
+    """The drain's default lanes a block over S seeds and K keys on a
+    card of ``sms`` SMs: a block for each SM, as far as the (seed, key)
+    pairs go. A block's time is its workers' passes over each tile
+    (latency-bound, a few entries a thread), which grow with its seeds,
+    so the pairs spread over every SM."""
+    return min(DRAIN_MAX_LANES, max(1, -(-S * K // sms)))
+
+
+def drain_blocking(S: int, K: int, lanes: int) -> tuple:
+    """(SB, KB, T) of a drain launch over S seeds and K keys: a block
+    owns SB seeds and KB keys, one lane per (seed, key), at most
+    ``lanes`` (<= DRAIN_MAX_LANES) of them, and walks tiles of T rows."""
+    if not 1 <= lanes <= DRAIN_MAX_LANES:
+        raise ValueError(f"a drain block takes 1..{DRAIN_MAX_LANES} lanes")
+    KB = min(K, lanes)
+    SB = max(1, min(S, lanes // KB, DRAIN_TILE_ENTRIES // 32))
+    T = min(512, DRAIN_TILE_ENTRIES // SB // 32 * 32)
+    return SB, KB, T
+
+
+def drain_register_cuda(ver0, val0, pver0, pval0, k_seq, f_seq, wv_seq,
+                        co_seq, cn_seq, to_seq, sg_seq) -> torch.Tensor:
+    """One launch of csrc/drain_register.cu on CUDA tensors (counted in
+    ``LAUNCHES``), blocked by ``drain_blocking`` at ``drain_lanes`` for
+    the tensors' card. Returns [5, N, S] int32 (tc, pk, va, vb, vc),
+    seed-major (a [5, S, N] tensor transposed) when the planes are."""
+    global LAUNCHES
+    state0 = (ver0, val0, pver0, pval0)
+    planes = (k_seq, f_seq, wv_seq, co_seq, cn_seq)
+    flags = (to_seq, sg_seq)
+    seed_major = _check_drain_inputs(state0, planes, flags)
+    dev = k_seq.device
+    if dev.type != "cuda":
+        raise ValueError(f"the drain kernel takes CUDA tensors, not {dev}")
+    from ..ops import _cuda
+    N, S = k_seq.shape
+    K = ver0.shape[1]
+    out = torch.empty((5, S, N) if seed_major else (5, N, S),
+                      dtype=torch.int32, device=dev)
+    if seed_major:
+        out = out.transpose(1, 2)
+    if N == 0 or S == 0:
+        return out
+    lanes = drain_lanes(
+        S, K, torch.cuda.get_device_properties(dev).multi_processor_count)
+    _cuda.drain_register(state0, planes, flags, out,
+                         drain_blocking(S, K, lanes), seed_major)
+    LAUNCHES += 1
+    return out
+
+
 def _drain_register(ver0, val0, pver0, pval0, k_seq, f_seq, wv_seq,
                     co_seq, cn_seq, to_seq, sg_seq) -> torch.Tensor:
     """The heap drain: one step per completion, every seed advanced at
@@ -249,32 +322,16 @@ def _drain_register(ver0, val0, pver0, pval0, k_seq, f_seq, wv_seq,
     ``(S, K)``. Timed-out ops (``to_seq``) leave the machine untouched —
     the host overlays their info rows from the invoke planes afterwards.
     Returns [5, N, S] int32 (tc, pk, va, vb, vc). CUDA tensors launch
-    csrc/drain_register.cu (the machine in shared memory when it fits,
-    else in a global scratch); CPU tensors take
+    csrc/drain_register.cu (``drain_register_cuda``); CPU tensors take
     ``drain_register_reference``."""
-    global LAUNCHES
-    state0 = (ver0, val0, pver0, pval0)
-    planes = (k_seq, f_seq, wv_seq, co_seq, cn_seq)
-    flags = (to_seq, sg_seq)
-    _check_drain_inputs(state0, planes, flags)
+    args = (ver0, val0, pver0, pval0, k_seq, f_seq, wv_seq, co_seq,
+            cn_seq, to_seq, sg_seq)
     dev = k_seq.device
     if dev.type == "cpu":
-        return drain_register_reference(*state0, *planes, *flags)
+        return drain_register_reference(*args)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    from ..ops import _cuda
-    N, S = k_seq.shape
-    K = ver0.shape[1]
-    out = torch.empty((5, N, S), dtype=torch.int32, device=dev)
-    if N == 0 or S == 0:
-        return out
-    threads = min(DRAIN_THREADS, -(-S // 32) * 32)
-    scratch = None
-    if 16 * K * threads > _cuda.drain_smem_max():
-        scratch = torch.empty((4, K, S), dtype=torch.int32, device=dev)
-    _cuda.drain_register(state0, planes, flags, out, scratch, threads)
-    LAUNCHES += 1
-    return out
+    return drain_register_cuda(*args)
 
 
 def _windows_abs(config, d, scheds, S, max_fin):
@@ -444,18 +501,18 @@ def generate_jax(config: BatchConfig, seeds, nem_schedules=None,
             ("co", d["cold"]), ("cn", d["cnew"]))}
         to_srt = take(TO)
         sg_srt = take(SG)
-        # two host-to-device copies: the int32 planes and the flags
-        planes = torch.from_numpy(np.ascontiguousarray(np.stack(
-            [srt[k].T for k in ("key", "f", "wv", "co", "cn")]
-        ).astype(np.int32))).to(dev)
-        flags = torch.from_numpy(np.ascontiguousarray(
-            np.stack([to_srt.T, sg_srt.T]))).to(dev)
+        # two host-to-device copies: the int32 planes and the flags,
+        # seed-major as drawn (the drain takes their (N, S) transposes)
+        planes = torch.from_numpy(np.stack(
+            [srt[k] for k in ("key", "f", "wv", "co", "cn")]
+        ).astype(np.int32)).to(dev)
+        flags = torch.from_numpy(np.stack([to_srt, sg_srt])).to(dev)
         ys = _drain_register(
             torch.zeros((S, K), dtype=torch.int32, device=dev),
             torch.full((S, K), -1, dtype=torch.int32, device=dev),
             torch.zeros((S, K), dtype=torch.int32, device=dev),
             torch.full((S, K), -1, dtype=torch.int32, device=dev),
-            *planes, *flags)
+            *(p.t() for p in planes), *(f.t() for f in flags))
         tc_o, pk_o, va_o, vb_o, vc_o = [y.T.astype(np.int64)
                                         for y in ys.cpu().numpy()]
         unsrt = np.empty((S, N), np.int64)

@@ -395,30 +395,56 @@ def test_drain_rejects_bad_inputs():
 @pytest.mark.cuda
 def test_cuda_drain_equals_plain_version():
     """csrc/drain_register.cu against drain_register_reference on the
-    card, the machine in shared memory and in the global scratch, with
-    one launch counted a call."""
+    card, at the default blocking (one launch counted a call) and at
+    blocks of 32 lanes, (N, S) and seed-major planes, each also starting
+    one element past an aligned address; 400 keys (past any block's
+    lanes) too; a block past the kernel's lanes refused."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     from jepsen_etcd_tpu_torch.ops import _cuda
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        view = buf[1:].view(t.shape) if t.is_contiguous() else \
+            buf[1:].view(t.shape[1], t.shape[0]).t()
+        view.copy_(t)
+        return view
+
+    def seed_major(args):
+        return args[:4] + [t.t().contiguous().t() for t in args[4:]]
+
+    def launch_32_lanes(args):
+        N, S = args[4].shape
+        major = not args[4].is_contiguous()
+        out = torch.empty((5, S, N) if major else (5, N, S),
+                          dtype=torch.int32, device="cuda")
+        _cuda.drain_register(
+            tuple(args[:4]), tuple(args[4:9]), tuple(args[9:]), out,
+            engine_v3.drain_blocking(S, args[0].shape[1], 32), major)
+        return out.transpose(1, 2) if major else out
     for seed, N, S, K, p_to in [(0, 300, 16, 4, 0.2), (1, 64, 300, 1, 0.0),
-                                (2, 100, 37, 40, 0.5), (3, 5, 1, 2, 1.0)]:
+                                (2, 100, 37, 40, 0.5), (3, 5, 1, 2, 1.0),
+                                (4, 40, 32, 400, 0.3)]:
         args = _torch_inputs(*_drain_inputs(seed, N, S, K, p_to), "cuda")
         want = engine_v3.drain_register_reference(*args)
-        smem = _cuda.drain_smem_max
-        for force_scratch in (False, True):
-            if force_scratch:
-                _cuda.drain_smem_max = lambda: 0
-            try:
+        for layout in (args, seed_major(args)):
+            for shift in (False, True):
+                inputs = [shifted(t) for t in layout] if shift else layout
                 before = engine_v3.LAUNCHES
-                got = engine_v3._drain_register(*args)
+                got = engine_v3.drain_register_cuda(*inputs)
                 torch.cuda.synchronize()
-            finally:
-                _cuda.drain_smem_max = smem
-            assert engine_v3.LAUNCHES == before + 1
-            assert torch.equal(got, want), (seed, force_scratch)
-    # a machine past the shared memory limit is refused, not cut
-    args = _torch_inputs(*_drain_inputs(4, 4, 32, 400), "cuda")
-    out = torch.empty((5, 4, 32), dtype=torch.int32, device="cuda")
+                assert engine_v3.LAUNCHES == before + 1
+                assert torch.equal(got, want), (seed, shift)
+                got = launch_32_lanes(inputs)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (seed, 32, shift)
+        before = engine_v3.LAUNCHES
+        assert torch.equal(engine_v3._drain_register(*args), want)
+        assert engine_v3.LAUNCHES == before + 1
+    # a block of more lanes than it has threads for is refused, not cut
+    assert _cuda.drain_max_lanes() == engine_v3.DRAIN_MAX_LANES
+    out = torch.empty((5, 40, 32), dtype=torch.int32, device="cuda")
     with pytest.raises(RuntimeError, match="drain_register launch failed"):
         _cuda.drain_register(tuple(args[:4]), tuple(args[4:9]),
-                             tuple(args[9:]), out, None, 128)
+                             tuple(args[9:]), out,
+                             (1, engine_v3.DRAIN_MAX_LANES + 1, 32))
