@@ -76,10 +76,22 @@ versions on the CPU, a corrupted read refuted. Last the store's readers
 ``forensics.all_runs``, the walk's rows = the index's), ``store compact
 --dry-run``, ``serve`` on port 0 in a process of its own with every
 page read over HTTP (each run page's verdicts and engines held against
-its results.json), and the linter over the port's tree. The frame
+its results.json), and the linter over the port's tree. Last the
+reference's fault packages (``faults_phase``, tests/test_nemesis.py's
+runs at its opts): register under kill, partition, latency, pause with
+clock and member, set under admin compaction, append under kill with
+bitflips, watch under kill and lock-set under clock faults, each through
+``run_test`` with force_kernel on the card and again on the CPU (plain
+versions): equal history bytes and dicts, every register key equal to
+the native DFS, lock-set losing adds. The frame
 tables (``build_tables``, held against the host packer) and the
 unsharded ladder rung (CUDA graphs held against the same ops issued
-one by one) are timed at the register and ladder-at-real-size cells. Prints the card's name and power limit, a
+one by one) are timed at the register and ladder-at-real-size cells.
+Holds that need no card run in worker processes while the card's
+sections go on: the ladder-at-real-size histories' wgl_wave plain
+versions on host copies of their tables, Elle's host legs (the 500-txn
+checks and the closure up to CPU_CUTOFF), and the reference sweep over
+the epoch-v3 set seeds. Prints the card's name and power limit, a
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
 Exits non-zero, with no result line, when CUDA is unavailable or any
 phase fails. Imports nothing of JAX or of the JAX package.
@@ -90,8 +102,10 @@ from __future__ import annotations
 import atexit
 import contextlib
 import io
+import concurrent.futures
 import itertools
 import json
+import multiprocessing
 import os
 import random
 import statistics
@@ -282,6 +296,10 @@ STREAM_ARGV = RUNNER_ARGV + ["--stream"]
 SET_ARGV = ["test", "-w", "set", "--time-limit", "60", "--rate", "200",
             "--seed", "0", "--stream"]
 SET_V3_OPTS = dict(GEN_OPTS, workload="set", gen_epoch="epoch-v3")
+#: processes that run the reference sweep over the epoch-v3 set seeds
+#: (host Python, ~1.7 s a seed) beside the card's checks, forked so that
+#: they read the histories without a copy
+SET_REF_WORKERS = 8
 LOCK_RUNS = (("lock", {"force_kernel": True}), ("lock-set", {}),
              ("lock-etcd-set", {}))
 MVCC_INJECT = {
@@ -358,10 +376,104 @@ SOAK_OPTS = {"workload": "register", "client_type": "http",
 LIVE_SPAWNS = 3
 #: the value a corrupted read claims: the register workload writes 0-4
 NEVER_WRITTEN = 424_242
+#: hold workers: the two ladder-at-size plain versions, the closure's
+#: three host legs and the four Elle host checks at 500 txns
+HOLD_WORKERS = 3
+#: section 16: the reference's fault packages (tests/test_nemesis.py)
+#: through etcd_test -> run_test at that file's opts (:13-18), each run
+#: with the card as the device and force_kernel, and once more with the
+#: plain versions on the CPU: (label, opts over FAULTS_BASE). Lock-set
+#: runs the file's two seeds, one of which must lose adds
+FAULTS_BASE = {"time_limit": 20, "rate": 25, "ops_per_key": 50,
+               "seed": 3, "nemesis_interval": 3, "force_kernel": True}
+FAULT_RUNS = (
+    ("register, kill", {"workload": "register", "nemesis": ["kill"]}),
+    ("register, partition", {"workload": "register",
+                             "nemesis": ["partition"]}),
+    ("register, latency", {"workload": "register", "nemesis": ["latency"]}),
+    ("register, pause + clock", {"workload": "register",
+                                 "nemesis": ["pause", "clock"],
+                                 "time_limit": 40}),
+    ("register, member", {"workload": "register", "nemesis": ["member"],
+                          "time_limit": 25}),
+    ("set, admin", {"workload": "set", "nemesis": ["admin"]}),
+    ("append, kill + bitflip", {"workload": "append",
+                                "nemesis": ["kill", "bitflip-wal",
+                                            "bitflip-snap"],
+                                "time_limit": 25}),
+    ("watch, kill", {"workload": "watch", "nemesis": ["kill"]}),
+    ("lock-set, clock, seed 0", {"workload": "lock-set",
+                                 "nemesis": ["clock"], "time_limit": 60,
+                                 "rate": 10, "seed": 0,
+                                 "nemesis_interval": 2}),
+    ("lock-set, clock, seed 1", {"workload": "lock-set",
+                                 "nemesis": ["clock"], "time_limit": 60,
+                                 "rate": 10, "seed": 1,
+                                 "nemesis_interval": 2}),
+)
 
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+#: the hold workers: spawned processes that run holds needing no card
+#: (plain versions on the host's CPU, the host legs of the card-against-
+#: host comparisons) while the card's sections go on; made on first use
+_HOLDS = None
+
+
+def hold_worker_init() -> None:
+    import torch
+    torch.set_num_threads(1)
+
+
+def hold_workers():
+    """The hold workers' pool, made on first use."""
+    global _HOLDS
+    if _HOLDS is None:
+        _HOLDS = concurrent.futures.ProcessPoolExecutor(
+            HOLD_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+            initializer=hold_worker_init)
+    return _HOLDS
+
+
+def stop_hold_workers() -> None:
+    """Ends the hold workers (jobs not started are dropped)."""
+    global _HOLDS
+    if _HOLDS is not None:
+        _HOLDS.shutdown(wait=True, cancel_futures=True)
+        _HOLDS = None
+
+
+def host_wave(tab, scal, wk: int) -> tuple:
+    """A hold worker's job: ``wave_search_reference`` on host copies
+    (numpy) of a group's tables, and its seconds."""
+    import torch
+    from jepsen_etcd_tpu_torch.ops import wgl_mxu
+    t0 = time.perf_counter()
+    out = wgl_mxu.wave_search_reference(torch.from_numpy(tab),
+                                        torch.from_numpy(scal), wk)
+    return out.numpy(), time.perf_counter() - t0
+
+
+def host_closure(a) -> tuple:
+    """A hold worker's job: the closure's host leg, ``closure_batch``
+    with ``force_device=False``: ((reach, on_cycle), seconds)."""
+    from jepsen_etcd_tpu_torch.ops import closure
+    t0 = time.perf_counter()
+    got = closure.closure_batch(a, force_device=False)
+    return got, time.perf_counter() - t0
+
+
+def host_elle(kind: str, history) -> tuple:
+    """A hold worker's job: the Elle check of ``kind`` on the host
+    (``use_tpu=False``), elle_check's (dict, stages)."""
+    from jepsen_etcd_tpu_torch.checkers.elle import (ListAppendChecker,
+                                                     RWRegisterChecker)
+    cls = {"list-append": ListAppendChecker,
+           "rw-register": RWRegisterChecker}[kind]
+    return elle_check(cls(use_tpu=False), history, sync=False)[:2]
 
 
 def card_line() -> str:
@@ -1028,13 +1140,14 @@ class SpanLog:
         yield
 
 
-def elle_check(checker, history) -> tuple:
+def elle_check(checker, history, sync: bool = True) -> tuple:
     """One Elle check with its stages on the host clock: (result,
     stages, spans). "closure" is closure_levels_lazy (the level stack
     built and squared on the card, on_cycle copied back), "certificates"
     the rest of find_cycles (anchored BFS over the edges, reach copied
     back on an invalid history), "collect and graph" the rest of the
-    check."""
+    check. ``sync`` False: no card is touched (a host check in a hold
+    worker)."""
     import torch
     from jepsen_etcd_tpu_torch.checkers.elle import graph
     from jepsen_etcd_tpu_torch.runner import telemetry
@@ -1055,7 +1168,8 @@ def elle_check(checker, history) -> tuple:
     graph.closure_levels_lazy = timed("closure", levels)
     telemetry.set_thread_current(log)
     try:
-        torch.cuda.synchronize()
+        if sync:
+            torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = checker.check({}, history)
         wall = time.perf_counter() - t0
@@ -1187,7 +1301,10 @@ def elle_phase(card: str, dev) -> list:
     and with an anomaly planted (the main path of this phase: the
     closure's launches are counted around the clean list-append check),
     the card against the host at 500 txns, and the closure's crossover.
-    Returns the kernels line's entry."""
+    The host legs (the 500-txn checks with ``use_tpu=False``, the
+    crossover's ``_closure_numpy`` up to CPU_CUTOFF) run in the hold
+    workers while the card's checks go on; their seconds are the
+    workers'. Returns the kernels line's entry."""
     import numpy as np
     import torch
     from jepsen_etcd_tpu_torch.checkers.elle import (ListAppendChecker,
@@ -1195,6 +1312,18 @@ def elle_phase(card: str, dev) -> list:
     from jepsen_etcd_tpu_torch.ops import closure
     from jepsen_etcd_tpu_torch.testing import gen_append_history, \
         gen_wr_history
+    host_legs = {}
+    for kind, gen in (("list-append", gen_append_history),
+                      ("rw-register", gen_wr_history)):
+        for corrupt in (None, ELLE_PLANTED[kind]):
+            small = gen(random.Random(ELLE_SEED), ELLE_PROCS,
+                        ELLE_PAIR_TXNS, corrupt=corrupt)
+            host_legs[kind, corrupt] = (small, hold_workers().submit(
+                host_elle, kind, small))
+    planes = {n: np.random.RandomState(0).rand(ELLE_B, n, n) < (2.0 / n)
+              for n in ELLE_SWEEP}
+    host_closures = {n: hold_workers().submit(host_closure, planes[n])
+                     for n in ELLE_SWEEP if n <= closure.CPU_CUTOFF}
     sq = elle_closure_at_scale(card, dev)
     launches = None
     for kind, gen, cls in (("list-append", gen_append_history,
@@ -1246,17 +1375,17 @@ def elle_phase(card: str, dev) -> list:
               f"nvidia-smi utilization over the runs)", flush=True)
         # the card against the host at 500 txns, clean and corrupted
         for corrupt in (None, planted):
-            small = gen(random.Random(ELLE_SEED), ELLE_PROCS,
-                        ELLE_PAIR_TXNS, corrupt=corrupt)
+            small, leg = host_legs[kind, corrupt]
             on_card, st_card, _ = elle_check(cls(use_tpu=True), small)
-            on_host, st_host, _ = elle_check(cls(use_tpu=False), small)
+            on_host, st_host = leg.result()
             print(f"elle {kind} at {ELLE_PAIR_TXNS} txns, corrupt="
                   f"{corrupt}: valid?={on_card['valid?']} "
                   f"{on_card['anomaly-types']}; card and host dicts equal: "
                   f"{on_card == on_host}; closure on the card "
                   f"{st_card['closure']:.4f} s, on the host "
-                  f"{st_host['closure']:.4f} s; check {st_card['wall']:.4f}"
-                  f" / {st_host['wall']:.4f} s", flush=True)
+                  f"{st_host['closure']:.4f} s (a hold worker); check "
+                  f"{st_card['wall']:.4f} / {st_host['wall']:.4f} s",
+                  flush=True)
             if on_card != on_host or on_card["valid?"] is not (
                     corrupt is None):
                 fail(f"elle {kind} at {ELLE_PAIR_TXNS} txns: the card and "
@@ -1264,7 +1393,7 @@ def elle_phase(card: str, dev) -> list:
     # the crossover: closure_batch on the card and, where the host
     # serves (N <= CPU_CUTOFF), on the host; six planes at density 2/N
     for n in ELLE_SWEEP:
-        a = np.random.RandomState(0).rand(ELLE_B, n, n) < (2.0 / n)
+        a = planes[n]
         card_s = []
         for _ in range(3):
             torch.cuda.synchronize()
@@ -1272,10 +1401,9 @@ def elle_phase(card: str, dev) -> list:
             got = closure.closure_batch(a, force_device=True)
             card_s.append(time.perf_counter() - t0)
         host = "not measured (N > CPU_CUTOFF)"
-        if n <= closure.CPU_CUTOFF:
-            t0 = time.perf_counter()
-            want = closure.closure_batch(a, force_device=False)
-            host = f"{time.perf_counter() - t0:.4f} s"
+        if n in host_closures:
+            want, secs = host_closures[n].result()
+            host = f"{secs:.4f} s (a hold worker)"
             if not all(np.array_equal(x, y) for x, y in zip(got, want)):
                 fail(f"closure at N={n}: card and host differ")
         print(f"closure crossover on {card}: N={n}, {ELLE_B} planes: card "
@@ -2501,6 +2629,20 @@ def runner_phase(card: str, dev) -> dict:
             "runs": [out["dir"], sout["dir"], wout["dir"], aout["dir"]]}
 
 
+#: the epoch-v3 set histories of stream (b), read by its forked workers
+_SET_HISTORIES = []
+
+
+def set_reference(sd: int) -> tuple:
+    """A forked worker's job in stream (b): ``_analyze_reference`` on
+    seed ``sd``'s history (pure Python, no card) and its seconds."""
+    from jepsen_etcd_tpu_torch.checkers.set_full import _analyze_reference
+    from jepsen_etcd_tpu_torch.core.history import History
+    t0 = time.perf_counter()
+    want = _analyze_reference(History(_SET_HISTORIES[sd].ops))
+    return want, time.perf_counter() - t0
+
+
 def no_wall(x):
     """``x`` without the keys that read a host clock (WALL_KEYS)."""
     if isinstance(x, dict):
@@ -2509,6 +2651,38 @@ def no_wall(x):
     if isinstance(x, (list, tuple)):
         return [no_wall(v) for v in x]
     return x
+
+
+def as_json(x):
+    """``x`` without its wall-clock keys, through a JSON round trip."""
+    return json.loads(json.dumps(no_wall(x), sort_keys=True, default=repr))
+
+
+def differences(a, b, path=()) -> list:
+    """(path, a's value, b's value) of every leaf where two JSON values
+    differ, in key order."""
+    if isinstance(a, dict) and isinstance(b, dict):
+        out = []
+        for k in sorted(set(a) | set(b)):
+            out += differences(a.get(k), b.get(k), path + (k,))
+        return out
+    return [] if a == b else [(path, a, b)]
+
+
+def reread_differences(stored: dict, reread: dict, subs: dict) -> tuple:
+    """Whether a register run's stored workload dict ``stored`` and its
+    dict on history.jsonl re-read, ``reread``, differ only as C6 leaves
+    them (ROADMAP.md): a key with no read, as a time limit can cut a
+    run's last key to a lone write, counts its writes in session.writes
+    on the run's column-backed history and 0 on the re-read one, in the
+    reference as in the port. ``subs`` is the run's history by key.
+    Returns (that, every difference)."""
+    no_read = {str(k) for k, sub in subs.items()
+               if not any(op.get("f") == "read" for op in sub.ops)}
+    diffs = differences(as_json(stored), as_json(reread))
+    return all(len(p) == 4 and p[0] == "results" and p[1] in no_read
+               and p[2:] == ("session", "writes") and a >= 1 and b == 0
+               for p, a, b in diffs), diffs
 
 
 def same_json(a, b) -> bool:
@@ -2551,7 +2725,8 @@ def stream_phase(card: str, dev, baseline: dict) -> dict:
     reference's set cell with ``--stream`` (the ``set_scan`` hint
     installed and used, the dict equal to the same history checked
     post-hoc), then epoch-v3 set histories generated on the card, each
-    ``SetFull`` verdict held against ``_analyze_reference``; (c) lock
+    ``SetFull`` verdict held against ``_analyze_reference`` (run in
+    SET_REF_WORKERS processes while the card checks); (c) lock
     with force_kernel decided by wgl_wave through the Mutex adapter (its
     verdict = the Python DFS's), lock-set and lock-etcd-set; (d) the
     MVCC workloads clean, then each with its injection hook caught.
@@ -2680,21 +2855,31 @@ def stream_phase(card: str, dev, baseline: dict) -> dict:
         draw_launches = engine_v3.DRAW_LAUNCHES
         check_s = ref_s = 0.0
         verdicts, bad = [], []
-        for sd, h in enumerate(gen["histories"]):
-            t0 = time.perf_counter()
-            res = SetFull(linearizable=True).check({}, h)
-            check_s += time.perf_counter() - t0
-            t0 = time.perf_counter()
-            want = _analyze_reference(History(h.ops))
-            ref_s += time.perf_counter() - t0
-            verdicts.append(res["valid?"])
-            if analyze(h) != want:
-                bad.append(sd)
+        t_ref = time.perf_counter()
+        _SET_HISTORIES[:] = gen["histories"]
+        with concurrent.futures.ProcessPoolExecutor(
+                SET_REF_WORKERS,
+                mp_context=multiprocessing.get_context("fork")) as pool:
+            wants = [pool.submit(set_reference, sd)
+                     for sd in range(len(_SET_HISTORIES))]
+            for sd, h in enumerate(gen["histories"]):
+                t0 = time.perf_counter()
+                res = SetFull(linearizable=True).check({}, h)
+                check_s += time.perf_counter() - t0
+                verdicts.append(res["valid?"])
+                want, secs = wants[sd].result()
+                ref_s += secs
+                if analyze(h) != want:
+                    bad.append(sd)
+        _SET_HISTORIES.clear()
+        ref_wall = time.perf_counter() - t_ref
         print(f"stream (b) epoch-v3 set on {card}: {GEN_SEEDS} seeds at "
               f"{SET_V3_OPTS}: generated in {gen_s:.3f} s (draws launched "
               f"{draw_launches} time(s)), {sum(map(len, gen['histories']))} "
               f"ops; SetFull {check_s:.3f} s in all, _analyze_reference "
-              f"{ref_s:.3f} s; verdicts {sorted(set(map(str, verdicts)))}; "
+              f"{ref_s:.3f} s in all ({SET_REF_WORKERS} processes; the "
+              f"holds' wall {ref_wall:.3f} s); verdicts "
+              f"{sorted(set(map(str, verdicts)))}; "
               f"seeds whose analysis differs from the reference "
               f"sweep's: {bad}", flush=True)
         if gen["epoch"] != "epoch-v3" or draw_launches < 1 or bad or \
@@ -3196,9 +3381,14 @@ def hold_live(label: str, out) -> dict:
         text = f.read()
     with open(os.path.join(out["dir"], "test.json")) as f:
         stored_test = json.load(f)
-    cpu = workload(dict(stored_test, device="cpu"))["checker"].check(
-        stored_test, History.from_jsonl(text))
-    same_cpu = same_json(out["results"]["workload"], cpu)
+    kept = out["results"]["workload"]
+    plain = workload(dict(stored_test, device="cpu"))["checker"]
+    # the plain versions on the history as the run checked it: the
+    # stored dict, exactly
+    same_cpu = same_json(kept, plain.check(stored_test, out["history"]))
+    # and on history.jsonl re-read: the stored dict but for C6
+    same_reread, c6 = reread_differences(
+        kept, plain.check(stored_test, History.from_jsonl(text)), subs)
     bad_text, bad_key = corrupt_read(text, engines.get("mxu-wave", ()))
     wgl_mxu.LAUNCHES = 0
     bad = workload(stored_test)["checker"].check(
@@ -3206,9 +3396,11 @@ def hold_live(label: str, out) -> dict:
     bad_launches = wgl_mxu.LAUNCHES
     wgl_mxu.LAUNCHES = found
     bad_lin = bad["results"][bad_key]["linear"]
-    if dfs_bad or not same_cpu:
+    if dfs_bad or not same_cpu or not same_reread:
         fail(f"live {label}: keys {dfs_bad} differ from the native DFS, "
-             f"or the dict differs from the plain versions' ({same_cpu})")
+             f"or the dict differs from the plain versions' ({same_cpu}), "
+             f"or from theirs on history.jsonl re-read by more than C6's "
+             f"session.writes of a key with no read: {c6}")
     if bad["valid?"] is not False or bad_lin["valid?"] is not False or \
             bad_lin.get("engine") != "mxu-wave" or bad_launches < 1:
         fail(f"live {label}: the corrupted read was not refuted through "
@@ -3216,7 +3408,9 @@ def hold_live(label: str, out) -> dict:
     return {"subs": subs, "engines": engines,
             "text": (f"every key's verdict = native DFS: {not dfs_bad}; "
                      f"dict = the stored history checked with the plain "
-                     f"versions on the CPU: {same_cpu}; key {bad_key} "
+                     f"versions on the CPU: {same_cpu}, on history.jsonl "
+                     f"re-read: {same_reread} (C6's session.writes of "
+                     f"keys with no read: {c6}); key {bad_key} "
                      f"with a read of {NEVER_WRITTEN}: valid?="
                      f"{bad['valid?']} (engine {bad_lin.get('engine')}, "
                      f"wgl_wave launches {bad_launches})")}
@@ -3660,6 +3854,106 @@ def readers_phase(card: str, runner: dict, camp: dict) -> None:
         shutil.rmtree(cstore, ignore_errors=True)
 
 
+def fault_route(lin: dict) -> str:
+    """Which engine decided a register key of a forced-kernel run:
+    wgl_wave's batched launch, the ladder's batched rung or a lone
+    ladder (keys with info ops), the native DFS, or nothing to search
+    (no op that took effect: waves 0)."""
+    if lin.get("engine") == "mxu-wave":
+        return "wgl_wave batched"
+    if lin.get("batched"):
+        return "ladder, batched rung"
+    if lin.get("engine") == "jnp-ladder":
+        return "ladder"
+    if lin.get("checker") == "cpu-oracle":
+        return "native DFS"
+    if lin.get("waves") == 0 and "engine" not in lin:
+        return "nothing to search"
+    return str(lin.get("engine"))
+
+
+def faults_phase(card: str, dev) -> dict:
+    """Section 16: the reference's fault packages on the card. Each of
+    FAULT_RUNS through ``run_test(etcd_test(...))`` with ``device`` the
+    card and force_kernel, and again with ``device="cpu"`` (the plain
+    versions): the history bytes and every checker's dict (wall-clock
+    keys aside) equal, each register key's verdict equal to the native
+    DFS's, every run valid (watch: valid or unknown) but lock-set, of
+    whose two seeds one loses adds (``valid? False``). Prints each run's
+    keys by engine and its wgl_wave launches; returns the launches for
+    the kernels line."""
+    import shutil
+    import tempfile
+    import torch
+    from jepsen_etcd_tpu_torch.checkers.linearizable import check_history
+    from jepsen_etcd_tpu_torch.compose import etcd_test
+    from jepsen_etcd_tpu_torch.models import VersionedRegister
+    from jepsen_etcd_tpu_torch.ops import edit_distance as ed
+    from jepsen_etcd_tpu_torch.ops import wgl_mxu
+    from jepsen_etcd_tpu_torch.runner.test_runner import run_test
+
+    store = tempfile.mkdtemp(prefix="chip-smoke-faults-")
+    launches, lock_losses = 0, 0
+    try:
+        for label, extra in FAULT_RUNS:
+            opts = dict(FAULTS_BASE, **extra)
+            torch.cuda.synchronize()
+            wgl_mxu.LAUNCHES = ed.LAUNCHES = 0
+            t0 = time.perf_counter()
+            out = run_test(etcd_test(dict(opts, store_base=store)))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            runs, b2_runs = wgl_mxu.LAUNCHES, ed.LAUNCHES
+            launches += runs
+            cpu = run_test(etcd_test(dict(opts, store_base=store,
+                                          device="cpu")))
+            same_bytes = out["history"].to_jsonl() == \
+                cpu["history"].to_jsonl()
+            res = {k: v for k, v in out["results"].items()
+                   if k != "timeline"}
+            cres = {k: v for k, v in cpu["results"].items()
+                    if k != "timeline"}
+            same = same_json(res, cres)
+            wl = out["results"]["workload"]
+            engines, bad_keys = {}, []
+            if extra["workload"] == "register":
+                subs = out["history"].split_by_key()
+                for k, r in wl["results"].items():
+                    lin = r["linear"]
+                    engines.setdefault(fault_route(lin), []).append(k)
+                    dfs = check_history(VersionedRegister(), subs[k])
+                    if dfs["valid?"] is not lin["valid?"]:
+                        bad_keys.append(k)
+            verdict = wl["set"]["valid?"] if "set" in wl else wl["valid?"]
+            print(f"faults on {card}: {label}: valid?={out['valid?']} "
+                  f"workload {verdict}, {len(out['history'])} ops, "
+                  f"{out['sim-seconds']:.1f} sim-s, wall {wall:.3f} s; "
+                  f"keys by engine "
+                  f"{ {k: len(v) for k, v in engines.items()} }; "
+                  f"wgl_wave launches {runs}, indel_bits {b2_runs}; "
+                  f"history bytes = the CPU "
+                  f"run's: {same_bytes}; dicts = the CPU run's: {same}; "
+                  f"every key = native DFS: {not bad_keys}", flush=True)
+            if not same_bytes or not same or bad_keys:
+                fail(f"faults, {label}: bytes {same_bytes}, dicts {same}, "
+                     f"keys unlike the native DFS {bad_keys}")
+            if extra["workload"] == "lock-set":
+                lock_losses += verdict is not True and \
+                    bool(wl["set"].get("lost"))
+            elif verdict is not True and not (
+                    extra["workload"] == "watch" and verdict == "unknown"):
+                fail(f"faults, {label}: workload verdict {verdict}")
+            if extra["workload"] == "register" and (
+                    "wgl_wave batched" not in engines or runs < 1):
+                fail(f"faults, {label}: wgl_wave launched {runs} times, "
+                     f"keys by engine {engines}")
+        if not lock_losses:
+            fail("faults: lock-set lost no adds under clock faults")
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    return {"launches": launches}
+
+
 def frame_tables_entry(p, card: str, dev, launches: int) -> dict:
     """The frame tables (``wgl_mxu.build_tables``, the reference's
     ``_build_tables_one``) at the register cell: its tables held exactly
@@ -3786,6 +4080,7 @@ def rung_entry(p, card: str, dev, launches: int, eager: dict,
 
 
 def main() -> None:
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4086,10 +4381,17 @@ def main() -> None:
     big = gen_history(random.Random(MAIN_SEED), n_procs=LADDER_BIG_PROCS,
                       n_ops=MAIN_OPS)
     big_bad = impossible_read_at(big, LADDER_BIG_AT)
+    # wgl_wave on each history's tables now, its plain version on host
+    # copies in a hold worker, compared after section 8
+    ladder_holds = []
     for what, hist, engine in [("valid", big, "mxu-wave"),
                                ("impossible read", big_bad, "jnp-ladder")]:
-        max_err = max(max_err, hold_history(
-            hist, f"ladder at real size, {what}", dev))
+        tab, scal, wk = tables_for([wgl.pack_register_history(hist)], dev)
+        ladder_holds.append((
+            f"ladder at real size, {what}", tab.shape, wk,
+            wgl_mxu.wave_search(tab, scal, wk).cpu(),
+            hold_workers().submit(host_wave, tab.cpu().numpy(),
+                                  scal.cpu().numpy(), wk)))
         wgl.RUNG_LAUNCHES = 0
         t0 = time.perf_counter()
         out = checker.check({}, hist)
@@ -4182,6 +4484,19 @@ def main() -> None:
     # -- 8. Elle: the closure, list-append and rw-register ------------
     marks.append((8, time.perf_counter()))
     elle_entries = elle_phase(card, torch.device("cuda", 0))
+    print("kernel vs plain, the plain version on the host's CPU (a hold "
+          "worker; exact, tolerance 0):", flush=True)
+    for what, shape, wk, got, job in ladder_holds:
+        want, secs = job.result()
+        err = int(np.abs(got.numpy().astype(np.int64)
+                         - want.astype(np.int64)).max())
+        max_err = max(max_err, err)
+        print(f"  {what}: K={shape[0]} r_pad={shape[1]} wk={wk} "
+              f"max_abs_err={err} (plain version {secs:.1f} s)",
+              flush=True)
+        if err != 0:
+            fail(f"wgl_wave disagrees with its plain version on {what}")
+    stop_hold_workers()
 
     # -- 9. the simulator: drain, generation, checks, fused pipeline ---
     marks.append((9, time.perf_counter()))
@@ -4224,6 +4539,11 @@ def main() -> None:
     marks.append((15, time.perf_counter()))
     readers_phase(card, runner, camp)
 
+    # -- 16. the reference's fault packages -------------------------------
+    marks.append((16, time.perf_counter()))
+    faults = faults_phase(card, torch.device("cuda", 0))
+    batch_entries[0]["launches"] += faults["launches"]
+
     marks.append((None, time.perf_counter()))
     print("section seconds on " + card + ": " + ", ".join(
         f"{n} {t1 - t0:.1f}" for (n, t0), (_, t1) in zip(marks, marks[1:]))
@@ -4256,4 +4576,7 @@ def main() -> None:
 
 if __name__ == "__main__":
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    main()
+    try:
+        main()
+    finally:
+        stop_hold_workers()

@@ -22,6 +22,8 @@ on first use: importing a submodule that needs no torch (a spawned
 fake-etcd node, the gateways) does not import it.
 """
 
+__version__ = "0.1.0"
+
 __all__ = ["resolve_device"]
 
 

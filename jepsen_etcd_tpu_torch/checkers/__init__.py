@@ -1,7 +1,7 @@
 from .core import (Checker, Compose, compose, Stats, UnhandledExceptions,
                    LogFilePattern, ClockPlot, Noop)
 from .independent import Independent, independent_checker
-from .linearizable import check_history
+from .linearizable import LinearizableChecker, linearizable, check_history
 from .mvcc import (BoundedStaleness, CompactionWatch, LeaseChurn,
                    SnapshotRanges)
 from .perf import Perf
@@ -14,8 +14,9 @@ from .watch import WatchChecker
 __all__ = [
     "Checker", "Compose", "compose", "Stats", "UnhandledExceptions",
     "LogFilePattern", "ClockPlot", "Noop", "Independent",
-    "independent_checker", "check_history", "BoundedStaleness",
-    "CompactionWatch", "LeaseChurn", "SnapshotRanges", "Perf",
-    "SessionGuarantees", "session_guarantees", "SetFull", "set_full",
-    "TimelineHtml", "TPULinearizableChecker", "WatchChecker",
+    "independent_checker", "LinearizableChecker", "linearizable",
+    "check_history", "BoundedStaleness", "CompactionWatch",
+    "LeaseChurn", "SnapshotRanges", "Perf", "SessionGuarantees",
+    "session_guarantees", "SetFull", "set_full", "TimelineHtml",
+    "TPULinearizableChecker", "WatchChecker",
 ]

@@ -30,6 +30,7 @@ from typing import Any, Optional
 from ..core.op import Op
 from ..core.history import History
 from ..models.base import Model, Inconsistent
+from .core import Checker
 
 INF = float("inf")
 
@@ -165,3 +166,18 @@ def check_history(model: Model, history, max_configs: int = 5_000_000,
         info["max-linearized"] = best_depth
     return info
 
+
+class LinearizableChecker(Checker):
+    """checker/linearizable: CPU oracle (use TPUlinearizable for scale)."""
+
+    def __init__(self, model_fn, max_configs: int = 5_000_000):
+        self.model_fn = model_fn
+        self.max_configs = max_configs
+
+    def check(self, test, history, opts=None) -> dict:
+        return check_history(self.model_fn(), history,
+                             max_configs=self.max_configs)
+
+
+def linearizable(model_fn) -> LinearizableChecker:
+    return LinearizableChecker(model_fn)

@@ -391,3 +391,7 @@ class TPULinearizableChecker(Checker):
             for i, out in zip(rest, rest_outs):
                 outs[i] = out
         return outs
+
+
+def tpu_linearizable(model_fn=None, device=None) -> TPULinearizableChecker:
+    return TPULinearizableChecker(model_fn, device=device)

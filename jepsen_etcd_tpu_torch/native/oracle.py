@@ -12,7 +12,8 @@ stays the semantic reference.
 
 Build: compiled on demand with g++ into ``_build/`` keyed by source
 hash; a failed build disables the native path for the process (the
-Python oracle is always available).
+Python oracle is always available). Set JEPSEN_ETCD_TPU_NO_NATIVE=1 to
+disable explicitly.
 """
 
 from __future__ import annotations
@@ -84,6 +85,8 @@ def _build_lib() -> Optional[ctypes.CDLL]:
 
 def get_lib() -> Optional[ctypes.CDLL]:
     global _lib, _lib_tried
+    if os.environ.get("JEPSEN_ETCD_TPU_NO_NATIVE"):
+        return None
     with _lock:
         if not _lib_tried:
             _lib_tried = True

@@ -19,22 +19,73 @@ sim only needs the bytes when a fault inspects them.
 from __future__ import annotations
 
 import dataclasses
+import io
 import itertools
 import math
 import pickle
 import struct
+import sys
 import zlib
 from typing import Any, Optional
 
 
 MAGIC = b"WALR"
 
+#: The simulated files' bytes are the reference's, byte for byte: a
+#: record pickles this package's classes under the reference's module
+#: paths (``jepsen_etcd_tpu.sut.cluster``, ...) and reads those paths
+#: back as this package's. A record's length, and so where a seeded
+#: bitflip lands and what replay keeps, is then the reference's, and a
+#: run under corruption faults records the reference's history. This
+#: exists only for that parity: nothing but the bitflip faults reads the
+#: bytes, and without the reference the records can pickle plainly again.
+_PKG = __name__.partition(".")[0]
+_REF_PKG = "jepsen_etcd_tpu"
+
+
+class _RecordPickler(pickle._Pickler):
+    """The pure-Python pickler, whose ``save_global`` can be replaced,
+    writing this package's classes under the reference's paths. The C
+    pickler cannot do it: its ``save_global`` takes the module from the
+    class's ``__module__`` and imports it to check the class, and a
+    ``reducer_override`` that names the class another way writes other
+    opcodes, so other bytes."""
+
+    def save_global(self, obj, name=None):
+        module = getattr(obj, "__module__", None) or ""
+        if module.partition(".")[0] != _PKG:
+            return super().save_global(obj, name)
+        # interned: one string object a module, so the memo (keyed by
+        # object) writes each module's name once a record, as the C
+        # pickler does
+        self.save(sys.intern(_REF_PKG + module[len(_PKG):]))
+        self.save(name or obj.__qualname__)
+        self.write(pickle.STACK_GLOBAL)
+        self.memoize(obj)
+
+
+class _RecordUnpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        if module.partition(".")[0] == _REF_PKG:
+            module = _PKG + module[len(_REF_PKG):]
+        return super().find_class(module, name)
+
+
+def _dumps(item: Any) -> bytes:
+    buf = io.BytesIO()
+    _RecordPickler(buf, protocol=4).dump(item)
+    return buf.getvalue()
+
+
+def _loads(payload: bytes) -> Any:
+    return _RecordUnpickler(io.BytesIO(payload)).load()
+
 
 def encode_records(items: list[Any]) -> bytes:
     """Encode items as length+crc framed records."""
     out = bytearray()
     for item in items:
-        payload = pickle.dumps(item, protocol=4)
+        payload = _dumps(item)
         crc = zlib.crc32(payload)
         out += MAGIC + struct.pack("<II", len(payload), crc) + payload
     return bytes(out)
@@ -42,7 +93,7 @@ def encode_records(items: list[Any]) -> bytes:
 
 def record_bytes(item: Any) -> bytes:
     """One framed record (MAGIC + length + crc + pickled payload)."""
-    payload = pickle.dumps(item, protocol=4)
+    payload = _dumps(item)
     crc = zlib.crc32(payload)
     return MAGIC + struct.pack("<II", len(payload), crc) + payload
 
@@ -69,7 +120,7 @@ def decode_records(buf: bytes) -> tuple[list[Any], Optional[str]]:
         if zlib.crc32(payload) != crc:
             return items, "crc-mismatch"
         try:
-            items.append(pickle.loads(payload))
+            items.append(_loads(payload))
         except Exception:
             return items, "crc-mismatch"
         at += 12 + ln

@@ -1,7 +1,8 @@
 """Test helpers shared by the port's tests and ``chip_smoke.py``: a
-random register-history synthesizer (a copy of the reference's
-``tests/test_wgl.py`` ``gen_history``), keyed (independent) register
-histories built from it (the reference's ``tests/test_batch.py``
+random register-history synthesizer and a random mutex-history one
+(copies of the reference's ``tests/test_wgl.py`` ``gen_history`` and
+``gen_mutex_history``), keyed (independent) register
+histories built from the first (the reference's ``tests/test_batch.py``
 ``keyed`` / ``multi_key_history``, and ``keyed_register_history``), the
 reference's ``_concurrent_writes_history`` (a frontier of C(n, n/2)
 states), rounds of unversioned concurrent ops (one window mask with
@@ -108,6 +109,60 @@ def gen_history(rng: random.Random, n_procs=4, n_ops=20, values=3,
                         v[1] = (v[1] + 1) % values if isinstance(v[1], int) \
                             else v[1]
                 ops.append(Op(type="ok", process=p, f=f, value=v))
+    return History(ops)
+
+
+def gen_mutex_history(rng, n_procs=3, n_ops=24, corrupt=False,
+                      info_rate=0.0):
+    """Random mutex history by linearization-point simulation (legal by
+    construction unless corrupt flips an outcome into a double-acquire /
+    free-release)."""
+    spans = []
+    for p in range(n_procs):
+        at = rng.random()
+        for _ in range(n_ops // n_procs):
+            dur = 0.1 + rng.random()
+            spans.append((at, at + dur, p))
+            at += dur + rng.random() * 0.3
+    is_info = [rng.random() < info_rate for _ in spans]
+    took_effect = [rng.random() < 0.5 for _ in spans]
+    pts = sorted((rng.uniform(s, e), i) for i, (s, e, p) in enumerate(spans))
+    locked = False
+    outcomes = {}
+    for _, i in pts:
+        if is_info[i] and not took_effect[i]:
+            outcomes[i] = (rng.choice(["acquire", "release"]), None)
+            continue
+        if not locked:
+            locked = True
+            outcomes[i] = ("acquire", "ok")
+        else:
+            locked = False
+            outcomes[i] = ("release", "ok")
+    if corrupt:
+        # flip some outcomes BEFORE events are emitted: checkers take f
+        # from the invoke op, so a flip must land there to produce a
+        # genuinely illegal schedule (double-acquire / free-release)
+        for i in list(outcomes):
+            if outcomes[i][1] == "ok" and rng.random() < 0.2:
+                f0, res = outcomes[i]
+                outcomes[i] = ("release" if f0 == "acquire"
+                               else "acquire", res)
+    evs = []
+    for i, (s, e, p) in enumerate(spans):
+        evs.append((s, "inv", i, p))
+        evs.append((e, "ret", i, p))
+    evs.sort()
+    ops = []
+    for _, kind, i, p in evs:
+        f, res = outcomes[i]
+        if kind == "inv":
+            ops.append(Op(type="invoke", process=p, f=f, value=None))
+        elif is_info[i]:
+            ops.append(Op(type="info", process=p, f=f, value=None,
+                          error="timeout"))
+        else:
+            ops.append(Op(type="ok", process=p, f=f, value=None))
     return History(ops)
 
 

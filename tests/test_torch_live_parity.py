@@ -32,6 +32,8 @@ grpc = pytest.importorskip("grpc")
 from jepsen_etcd_tpu.client.etcd_grpc import GrpcEtcdClient as RefGrpc
 from jepsen_etcd_tpu.client.etcd_http import HttpEtcdClient as RefHttp
 from jepsen_etcd_tpu.core.history import History as RefHistory
+from jepsen_etcd_tpu.core.history import columns_of as ref_columns_of
+from jepsen_etcd_tpu.core.op import Op as RefOp
 from jepsen_etcd_tpu.db.local import LocalDb as RefLocalDb
 from jepsen_etcd_tpu.net.plane import NetPlane as RefNetPlane
 from jepsen_etcd_tpu.net.proxy import LinkProxy as RefLinkProxy
@@ -45,13 +47,16 @@ from jepsen_etcd_tpu_torch import cli
 from jepsen_etcd_tpu_torch.client.etcd_grpc import GrpcEtcdClient
 from jepsen_etcd_tpu_torch.client.etcd_http import HttpEtcdClient, _key64
 from jepsen_etcd_tpu_torch.client.proto import etcd_rpc_pb2 as pb
-from jepsen_etcd_tpu_torch.core.history import History
+from jepsen_etcd_tpu_torch.core.history import History, columns_of
+from jepsen_etcd_tpu_torch.core.op import Op
 from jepsen_etcd_tpu_torch.db.local import LocalDb
+from jepsen_etcd_tpu_torch.generators import independent, limit
 from jepsen_etcd_tpu_torch.net.plane import NetPlane
 from jepsen_etcd_tpu_torch.net.proxy import LinkProxy
 from jepsen_etcd_tpu_torch.runner import sim
 from jepsen_etcd_tpu_torch.runner.wall import WallLoop
 from jepsen_etcd_tpu_torch.sut import grpc_gateway, http_gateway
+from jepsen_etcd_tpu_torch.workloads import register as register_workload
 from jepsen_etcd_tpu_torch.workloads import workloads
 from test_torch_fixtures import one_torch_thread  # noqa: F401
 
@@ -404,15 +409,45 @@ def test_clients_interoperate_with_the_references(wire, client_pkg,
 
 # ---- (iii) a recorded live run, checked by both packages -------------------
 
-@pytest.fixture(scope="module")
-def recorded_live_run(tmp_path_factory):
+#: keys the recorded run works, all of them to their 20 ops
+RECORDED_KEYS = 12
+
+
+class _RecordedKeys:
+    """The register workload's ``independent``, its key range cut to
+    the first ``RECORDED_KEYS`` keys."""
+
+    def concurrent_generator(self, n, keys, gen_fn):
+        return independent.concurrent_generator(n, keys[:RECORDED_KEYS],
+                                                gen_fn)
+
+
+class _CutKey:
+    """``_RecordedKeys``, then one more key cut after its first op, a
+    write, as a time limit cuts a run's last key."""
+
+    def concurrent_generator(self, n, keys, gen_fn):
+        cut = keys[RECORDED_KEYS]
+        return independent.concurrent_generator(
+            n, keys[:RECORDED_KEYS + 1],
+            lambda k: limit(1, register_workload.w) if k == cut
+            else gen_fn(k))
+
+
+def _record_live(tmp_path_factory, keys) -> tuple:
+    """(history.jsonl text, results.json) of a live register run over
+    the port's HTTP gateway, its keys drawn through ``keys`` (the
+    register workload's ``independent``, patched)."""
     gw = HttpGateway("port")
     store = tmp_path_factory.mktemp("live")
     try:
-        rc = cli.main(["test", "-w", "register", "--client-type", "http",
-                       "--endpoint", gw.endpoint, "--time-limit", "3",
-                       "-r", "100", "-c", "4", "--ops-per-key", "20",
-                       "--store", str(store), "--device", "cpu"])
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(register_workload, "independent", keys)
+            rc = cli.main(["test", "-w", "register", "--client-type",
+                           "http", "--endpoint", gw.endpoint,
+                           "--time-limit", "6", "-r", "200", "-c", "4",
+                           "--ops-per-key", "20", "--store", str(store),
+                           "--device", "cpu"])
     finally:
         gw.close()
     assert rc == 0
@@ -422,6 +457,27 @@ def recorded_live_run(tmp_path_factory):
     with open(os.path.join(run_dir, "results.json")) as f:
         results = json.load(f)
     return text, results
+
+
+@pytest.fixture(scope="module")
+def recorded_live_run(tmp_path_factory):
+    """A live run whose every key is worked to its 20 ops well inside
+    the time limit (240 ops at rate 200: ~1.2 s of 6). A key cut by the
+    time limit can hold one lone op: a failed CAS, which needs no
+    search and so names no engine, or a write with no read, whose
+    session write count the reference gives as 1 on the run's
+    column-backed history and 0 on the same history re-read from
+    history.jsonl. No package can then give a re-check equal both to
+    the reference's and to the stored dict, so the cut key has tests of
+    its own below (``recorded_cut_run``, ``CUT_OPS``)."""
+    return _record_live(tmp_path_factory, _RecordedKeys())
+
+
+@pytest.fixture(scope="module")
+def recorded_cut_run(tmp_path_factory):
+    """A live run of ``RECORDED_KEYS`` keys worked to their 20 ops and
+    one key cut to a lone write (``_CutKey``)."""
+    return _record_live(tmp_path_factory, _CutKey())
 
 
 @pytest.mark.parametrize("force_kernel", [False, True],
@@ -449,6 +505,122 @@ def test_recorded_live_history_checks_equal(recorded_live_run,
         # the recorded run's own (default-routed) dict, re-read
         assert as_json(port) == as_json(results["workload"])
         assert "mxu-wave" not in engines
+
+
+# ---- (iii) a key cut to a lone write: stored and re-checked dicts ----------
+
+#: a fixed recorded history in a live register run's shape: key 0 worked
+#: (a write, a read, a failed CAS), key 1 cut after its first op, a write
+CUT_OPS = [dict(op, time=1_000_000 * t) for t, op in enumerate([
+    {"type": "invoke", "process": 0, "f": "write", "value": (0, [None, 2])},
+    {"type": "ok", "process": 0, "f": "write", "value": (0, [1, 2])},
+    {"type": "invoke", "process": 1, "f": "read", "value": (0, [None, None])},
+    {"type": "ok", "process": 1, "f": "read", "value": (0, [1, 2])},
+    {"type": "invoke", "process": 0, "f": "cas",
+     "value": (0, [None, [4, 0]])},
+    {"type": "fail", "process": 0, "f": "cas", "value": (0, [None, [4, 0]]),
+     "error": "did-not-succeed"},
+    {"type": "invoke", "process": 2, "f": "write", "value": (1, [None, 3])},
+    {"type": "ok", "process": 2, "f": "write", "value": (1, [1, 3])},
+])]
+
+
+def differences(a, b, path=()) -> list:
+    """(path, a's value, b's value) of every leaf where two JSON values
+    differ, in key order."""
+    if isinstance(a, dict) and isinstance(b, dict):
+        out = []
+        for k in sorted(set(a) | set(b)):
+            out += differences(a.get(k), b.get(k), path + (k,))
+        return out
+    return [] if a == b else [(path, a, b)]
+
+
+def _recheck(text, force_kernel) -> tuple:
+    """(port's, reference's) register dicts on history.jsonl ``text``,
+    re-read as the live-parity test reads it."""
+    opts = {"ops_per_key": 20, "force_kernel": force_kernel,
+            "nodes": ["n1"]}
+    port = workloads()["register"](dict(opts, device="cpu"))["checker"] \
+        .check({}, History.from_jsonl(text), {})
+    ref = ref_workloads()["register"](dict(opts))["checker"] \
+        .check({}, RefHistory.from_jsonl(text), {})
+    return as_json(port), as_json(ref)
+
+
+def as_json(x):
+    return json.loads(json.dumps(x, default=repr, sort_keys=True))
+
+
+@pytest.mark.parametrize("force_kernel", [False, True],
+                         ids=["native-dfs", "force-kernel"])
+def test_cut_key_differs_only_in_session_writes(force_kernel,
+                                                monkeypatch):
+    """The live-parity comparison on ``CUT_OPS``: each package's dict on
+    the history as a run records it (dicts and columns) is the stored
+    verdict, its dict on the history.jsonl re-read the re-check. The two
+    packages agree on both; the two differ in the cut key's session
+    write count alone (1 stored, 0 re-checked), in both packages."""
+    monkeypatch.setattr(ref_wgl, "_run_fused",
+                        lambda broken, name, call: call())
+    opts = {"ops_per_key": 20, "force_kernel": force_kernel,
+            "nodes": ["n1"]}
+    ops = History([Op(o) for o in CUT_OPS]).ops
+    ref_ops = RefHistory([RefOp(o) for o in CUT_OPS]).ops
+    assert columns_of(ops) is not None
+    stored = as_json(workloads()["register"](dict(opts, device="cpu"))
+                     ["checker"].check({}, History(ops, columns_of(ops)),
+                                       {}))
+    ref_stored = as_json(ref_workloads()["register"](dict(opts))["checker"]
+                         .check({}, RefHistory(ref_ops,
+                                               ref_columns_of(ref_ops)),
+                                {}))
+    text = History(ops).to_jsonl()
+    assert text == RefHistory(ref_ops).to_jsonl()
+    port, ref = _recheck(text, force_kernel)
+    assert stored == ref_stored
+    assert port == ref
+    assert differences(stored, port) == [
+        (("results", "1", "session", "writes"), 1, 0)]
+
+
+@pytest.mark.parametrize("force_kernel", [False, True],
+                         ids=["native-dfs", "force-kernel"])
+def test_chip_smoke_reread_hold_lets_c6_alone_pass(force_kernel):
+    """``chip_smoke.reread_differences``, the live runs' hold of the
+    stored dict against history.jsonl re-read, on ``CUT_OPS``: C6's
+    session write count of the cut key (no read) passes; the same
+    difference on key 0, which has a read, fails."""
+    import chip_smoke
+    ops = History([Op(o) for o in CUT_OPS]).ops
+    history = History(ops, columns_of(ops))
+    checker = workloads()["register"](
+        {"ops_per_key": 20, "force_kernel": force_kernel, "nodes": ["n1"],
+         "device": "cpu"})["checker"]
+    stored = checker.check({}, history, {})
+    reread = checker.check({}, History.from_jsonl(history.to_jsonl()), {})
+    subs = history.split_by_key()
+    assert chip_smoke.reread_differences(stored, reread, subs) == (
+        True, [(("results", "1", "session", "writes"), 1, 0)])
+    key0 = [k for k in stored["results"] if str(k) == "0"][0]
+    stored["results"][key0]["session"]["writes"] += 1
+    ok, diffs = chip_smoke.reread_differences(stored, reread, subs)
+    assert not ok and (("results", "0", "session", "writes"), 2, 1) in diffs
+
+
+def test_recorded_cut_key_differs_only_in_session_writes(recorded_cut_run):
+    """``recorded_cut_run`` (its last key cut to a lone write) through
+    the live-parity comparison: the port's re-check of history.jsonl
+    equals the reference's, and differs from the stored results.json in
+    the cut key's session write count alone."""
+    text, results = recorded_cut_run
+    port, ref = _recheck(text, False)
+    assert port == ref
+    assert port["valid?"] is True
+    assert len(port["results"]) == RECORDED_KEYS + 1
+    cut = str(max(map(int, port["results"])))
+    assert differences(as_json(results["workload"]), port) == [
+        (("results", cut, "session", "writes"), 1, 0)]
 
 
 # ---- (vi) the local control plane's argv -----------------------------------
