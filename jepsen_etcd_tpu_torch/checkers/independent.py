@@ -35,10 +35,12 @@ class Independent(Checker):
         # one pass over the parent history builds every per-key
         # subhistory; column-backed histories split as array slices and
         # stay column-backed into the batched packer
-        subs = h.split_by_key()
+        tel = telemetry.current()
+        with tel.span("independent.split"):
+            subs = h.split_by_key()
         # the run's key fanout: how many per-key checks this split
         # produced
-        telemetry.current().counter("independent.keys", len(subs))
+        tel.counter("independent.keys", len(subs))
         if hasattr(self.inner, "check_batch"):
             results = self.inner.check_batch(test, subs, opts)
         else:

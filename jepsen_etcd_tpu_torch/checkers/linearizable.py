@@ -30,6 +30,7 @@ from typing import Any, Optional
 from ..core.op import Op
 from ..core.history import History
 from ..models.base import Model, Inconsistent
+from ..runner import telemetry
 from .core import Checker
 
 INF = float("inf")
@@ -98,11 +99,20 @@ def check_history(model: Model, history, max_configs: int = 5_000_000,
     Models expressible as (versioned) CAS registers run on the native
     C++ engine (native/wgl_oracle.cpp, ~100x this DFS); this Python
     search is the semantic reference the native engine is
-    differentially tested against, and the path for other models."""
+    differentially tested against, and the path for other models.
+    One ``oracle.dfs`` span a call that has ops to search."""
     entries = history_entries(history)
     n = len(entries)
     if n == 0:
         return {"valid?": True, "configs": 0, "ops": 0}
+    with telemetry.current().span("oracle.dfs", ops=n):
+        return _search(model, entries, max_configs, use_native)
+
+
+def _search(model: Model, entries: list, max_configs: int,
+            use_native: bool) -> dict:
+    """``check_history``'s search over a non-empty ``entries``."""
+    n = len(entries)
     if use_native:
         from ..native import oracle as native_oracle
         out = native_oracle.check_entries(model, entries,

@@ -1675,7 +1675,8 @@ def _wgl_loop(tables: dict, R: int, I: int, f_max: int, w: int, init0,
     long run replays batches of waves from a CUDA graph
     (``_graph_waves``). Returns (accepted, overflow, k, peak, frontier)
     with the first four as Python values and the frontier's tensors on
-    the device."""
+    the device. One ``wgl.eager`` span a call, around the eager waves
+    and their syncs, however many run."""
     global RUNG_LAUNCHES
     k0, dvec, wvec, ivec, vvec, n_alive = init0
     dev = dvec.device
@@ -1719,10 +1720,11 @@ def _wgl_loop(tables: dict, R: int, I: int, f_max: int, w: int, init0,
     done = 0
     if dev.type == "cuda" and n_waves >= GRAPH_MIN_WAVES:
         carry, done = _graph_waves(wave, running, carry, n_waves)
-    for it in range(done, n_waves):
-        if (it - done) % SYNC_EVERY == 0 and not bool(running(carry)):
-            break
-        carry = wave(carry)
+    with telemetry.current().span("wgl.eager"):
+        for it in range(done, n_waves):
+            if (it - done) % SYNC_EVERY == 0 and not bool(running(carry)):
+                break
+            carry = wave(carry)
     k, dvec, wvec, ivec, vvec, n_alive, peak, overflow, accepted = carry
     return (bool(accepted), bool(overflow), int(k), int(peak),
             (dvec, wvec, ivec, vvec, n_alive))
@@ -1733,33 +1735,40 @@ def _graph_waves(wave, running, carry: list, n_waves: int):
     ``GRAPH_WAVES`` waves, replayed while the loop runs and whole
     batches fit in ``n_waves``: the same operations as the eager loop
     (so the same results), without the host's per-operation launch
-    cost. Returns (carry, waves run); the caller runs the rest."""
-    static = [c.clone() for c in carry]
-    side = torch.cuda.Stream(device=static[0].device)
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        # one eager wave first, as CUDA graphs want before a capture
-        for dst, src in zip(static, wave(static)):
-            dst.copy_(src)
-    torch.cuda.current_stream().wait_stream(side)
-    done = 1
-    # graftlint: ignore[TORCH003] one capture per rung run by design: only runs of GRAPH_MIN_WAVES waves or more capture, and the capture holds the rung's own tables
-    graph = torch.cuda.CUDAGraph()
-    # one capture at a time in the process (PyTorch's rule), on this
-    # call's own stream, never the capture stream torch.cuda.graph
-    # shares between threads; thread-local, so other threads may go on
-    # issuing work and allocating on the card meanwhile (the fused
-    # pipeline's generator, the service's other lanes)
-    with _CAPTURE_LOCK, torch.cuda.graph(
-            graph, stream=side, capture_error_mode="thread_local"):
-        c = static
-        for _ in range(GRAPH_WAVES):
-            c = wave(c)
-        for dst, src in zip(static, c):
-            dst.copy_(src)
-    while done + GRAPH_WAVES <= n_waves and bool(running(static)):
-        graph.replay()
-        done += GRAPH_WAVES
+    cost. Returns (carry, waves run); the caller runs the rest.
+
+    Two spans a call: ``wgl.graph-capture`` (the warm-up wave and the
+    capture, a wait on another thread's capture included) and
+    ``wgl.graph-replay`` (every replay and its sync)."""
+    tel = telemetry.current()
+    with tel.span("wgl.graph-capture"):
+        static = [c.clone() for c in carry]
+        side = torch.cuda.Stream(device=static[0].device)
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            # one eager wave first, as CUDA graphs want before a capture
+            for dst, src in zip(static, wave(static)):
+                dst.copy_(src)
+        torch.cuda.current_stream().wait_stream(side)
+        done = 1
+        # graftlint: ignore[TORCH003] one capture per rung run by design: only runs of GRAPH_MIN_WAVES waves or more capture, and the capture holds the rung's own tables
+        graph = torch.cuda.CUDAGraph()
+        # one capture at a time in the process (PyTorch's rule), on this
+        # call's own stream, never the capture stream torch.cuda.graph
+        # shares between threads; thread-local, so other threads may go
+        # on issuing work and allocating on the card meanwhile (the
+        # fused pipeline's generator, the service's other lanes)
+        with _CAPTURE_LOCK, torch.cuda.graph(
+                graph, stream=side, capture_error_mode="thread_local"):
+            c = static
+            for _ in range(GRAPH_WAVES):
+                c = wave(c)
+            for dst, src in zip(static, c):
+                dst.copy_(src)
+    with tel.span("wgl.graph-replay"):
+        while done + GRAPH_WAVES <= n_waves and bool(running(static)):
+            graph.replay()
+            done += GRAPH_WAVES
     return static, done
 
 
@@ -1850,7 +1859,8 @@ def _check_packed_impl(p: Packed, f_max: Optional[int] = None,
             return out
     ladder = _ladder(p, f_max)
     ni = info_dims(p)[1]
-    tables = device_tables(p, dev)
+    with telemetry.current().span("wgl.tables"):
+        tables = device_tables(p, dev)
     # one histogram sample per rung attempt, value = the rung's
     # frontier budget (the guided coverage vector's wave histogram)
     telemetry.current().hist("wgl.rung_waves", ladder[0])
@@ -2047,12 +2057,13 @@ def _check_bucket_group(packs: list, results: list, idxs: list,
     else:
         lanes = [resolve_device(device)]
     K = len(idxs)
+    tel = telemetry.current()
     if prepared is None or not prepared.fits(packs, idxs,
                                              (r_pad, info, w), len(lanes)):
-        prepared = prepare_bucket_group(packs, idxs, r_pad, info,
-                                        lanes=len(lanes))
+        with tel.span("wgl.tables"):
+            prepared = prepare_bucket_group(packs, idxs, r_pad, info,
+                                            lanes=len(lanes))
     per = prepared.k_pad // len(lanes)
-    tel = telemetry.current()
     for _ in idxs:
         # every key in the group attempts the batched rung
         tel.hist("wgl.rung_waves", f_max)
@@ -2065,8 +2076,10 @@ def _check_bucket_group(packs: list, results: list, idxs: list,
         if not rows:
             return []
         dev = lanes[d]
-        stacked = _tables_to({name: a[rows.start:rows.stop]
-                              for name, a in prepared.stacked.items()}, dev)
+        with tel.span("wgl.tables"):
+            stacked = _tables_to({name: a[rows.start:rows.stop]
+                                  for name, a in prepared.stacked.items()},
+                                 dev)
         out = []
         for j in rows:
             p = packs[idxs[j]]

@@ -705,10 +705,12 @@ def readback(launched: list) -> list:
 def collect_packed_batch_mxu(launched: list, results: list) -> None:
     """Read back launch records from ``launch_packed_batch_mxu`` and
     decode into ``results`` (indexed as the original pack list);
-    padding keys' rows are dropped."""
-    for chunk, out, chunk_packs in readback(launched):
-        for j, (i, p) in enumerate(zip(chunk, chunk_packs)):
-            results[i] = _decode(out[j], p)
+    padding keys' rows are dropped. One ``mxu.collect`` span: the
+    host's wait for the kernel, as the reference's."""
+    with telemetry.current().span("mxu.collect", chunks=len(launched)):
+        for chunk, out, chunk_packs in readback(launched):
+            for j, (i, p) in enumerate(zip(chunk, chunk_packs)):
+                results[i] = _decode(out[j], p)
 
 
 def check_packed_mxu(p: Packed, device=None) -> dict | None:

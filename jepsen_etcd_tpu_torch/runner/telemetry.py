@@ -90,6 +90,16 @@ REGISTRY = {
         "fused.gen",          # runner/stream.py FusedPipeline: the
                               # producer's generation leg
         "fused.check",        # ... and the consumer's check leg
+        "wgl.tables",         # ops/wgl.py: a ladder's tables padded and
+                              # copied to the card (a key, a lane)
+        "wgl.graph-capture",  # ... a rung run's warm-up wave and its
+                              # CUDA-graph capture
+        "wgl.graph-replay",   # ... the run's graph replays and syncs
+        "wgl.eager",          # ... its host-launched waves (the rest)
+        "independent.split",  # checkers/independent.py: the per-key
+                              # split
+        "oracle.dfs",         # checkers/linearizable.py check_history:
+                              # the native DFS or its Python twin
     ),
     "hists": (
         "op.latency.*",       # per-op-class completion latency, seconds

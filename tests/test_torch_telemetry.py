@@ -9,6 +9,7 @@ span, recorded by the port's recorder, has the run schema."""
 
 import json
 import os
+import random
 
 import pytest
 
@@ -18,10 +19,17 @@ from jepsen_etcd_tpu.core.history import History as RefHistory
 from jepsen_etcd_tpu.models import VersionedRegister as RefVR
 from jepsen_etcd_tpu.ops import wgl as ref_wgl
 from jepsen_etcd_tpu.runner import telemetry as ref_telemetry
+from jepsen_etcd_tpu_torch.checkers.independent import Independent
+from jepsen_etcd_tpu_torch.checkers.linearizable import (
+    LinearizableChecker, check_history)
+from jepsen_etcd_tpu_torch.models import VersionedRegister
+from jepsen_etcd_tpu_torch.ops import wgl as port_wgl, wgl_mxu
 from jepsen_etcd_tpu_torch.runner import telemetry
 from jepsen_etcd_tpu_torch.runner.telemetry import (
     Telemetry, NullTelemetry, NULL, SPAN_FIELDS, COUNTER_FIELDS,
     EVENT_FIELDS, HIST_FIELDS)
+from jepsen_etcd_tpu_torch.testing import gen_history, \
+    keyed_register_history
 from test_torch_fixtures import as_json, both, mod, run_test_both
 from test_torch_fixtures import one_torch_thread  # noqa: F401
 
@@ -185,18 +193,25 @@ def run(tmp_path, **opts):
 #: counters that read the host's clock
 WALL_CLOCK_COUNTERS = ("generate.ops_per_s",)
 
+#: spans only the port records: inside the ladder, around the split and
+#: around the DFS
+PORT_SPANS = ("wgl.tables", "wgl.graph-capture", "wgl.graph-replay",
+              "wgl.eager", "independent.split", "oracle.dfs")
+
 
 def shape(out) -> dict:
-    """A run's telemetry without its seconds: span counts, counters and
-    the file's (kind, name) records."""
+    """A run's telemetry without its seconds and the port's own spans:
+    span counts, counters and the file's (kind, name) records."""
     tel = out["results"]["telemetry"]
     recs = read_jsonl(os.path.join(out["dir"], "telemetry.jsonl"))
-    return {"spans": {k: v["count"] for k, v in tel["spans"].items()},
+    return {"spans": {k: v["count"] for k, v in tel["spans"].items()
+                      if k not in PORT_SPANS},
             "counters": {k: v for k, v in tel["counters"].items()
                          if k not in WALL_CLOCK_COUNTERS},
             "phases": sorted(tel["phases"]),
             "checkers": sorted(tel["checkers"]),
-            "records": sorted((r["kind"], r["name"]) for r in recs)}
+            "records": sorted((r["kind"], r["name"]) for r in recs
+                              if r["name"] not in PORT_SPANS)}
 
 
 def test_run_writes_telemetry_and_reconciles(tmp_path):
@@ -234,6 +249,7 @@ def test_run_writes_telemetry_and_reconciles(tmp_path):
     assert "phase:save" in by_name
 
     assert tel["counters"].get("engine.cpu-oracle", 0) >= 1
+    assert {"independent.split", "oracle.dfs"} <= set(tel["spans"])
     file_counters = {r["name"]: r["value"] for r in recs
                      if r["kind"] == "counter"}
     assert set(file_counters) - set(tel["counters"]) <= \
@@ -293,7 +309,8 @@ def _forced(pkg, tmp_path, f_max):
     disp = [r["attrs"] for r in read_jsonl(path) if r["kind"] == "span"
             and r["name"] == "wgl.check_packed"]
     return as_json(res), s["counters"], \
-        {k: v["count"] for k, v in s["spans"].items()}, disp, s
+        {k: v["count"] for k, v in s["spans"].items()
+         if k not in PORT_SPANS}, disp, s
 
 
 def test_forced_kernel_emits_tpu_counters(tmp_path, monkeypatch):
@@ -322,6 +339,111 @@ def test_forced_kernel_emits_tpu_counters(tmp_path, monkeypatch):
     assert wave[1].get("mxu.dispatches") == 1
     s = _forced("jepsen_etcd_tpu_torch", tmp_path, 32)[4]
     assert s["spans"]["wgl.check_packed"]["total_s"] > 0
+
+
+# ---- the port's spans inside the ladder, the split and the DFS --------------
+
+def _info_key(n_ops: int):
+    """A register key holding :info ops, packed: the wave kernel cannot
+    take it, so it climbs the ladder; its waves grow with ``n_ops``."""
+    p = port_wgl.pack_register_history(
+        gen_history(random.Random(7), n_procs=4, n_ops=n_ops,
+                    info_rate=0.1))
+    assert p.I > 0
+    return p
+
+
+def _recorded(tmp_path, fn):
+    """``fn()``'s result and every record a fresh recorder took
+    meanwhile."""
+    path = str(tmp_path / "recorded.jsonl")
+    tel = Telemetry(path)
+    telemetry.set_current(tel)
+    try:
+        out = fn()
+    finally:
+        telemetry.set_current(None)
+        tel.close()
+    return out, read_jsonl(path)
+
+
+def _spans(recs, name) -> list:
+    return [r for r in recs if r["kind"] == "span" and r["name"] == name]
+
+
+def test_lone_ladder_spans_nest_in_check_packed(tmp_path):
+    """On the CPU a lone ladder check runs its waves eagerly: its
+    tables and its eager waves in one span each, inside
+    ``wgl.check_packed``, and no graph span."""
+    out, recs = _recorded(tmp_path, lambda: port_wgl.check_packed(
+        _info_key(40), f_max=32, device="cpu"))
+    assert out["engine"] == "jnp-ladder" and out["rungs"] == 1
+    [outer] = _spans(recs, "wgl.check_packed")
+    for name in ("wgl.tables", "wgl.eager"):
+        [sp] = _spans(recs, name)
+        assert outer["t0"] <= sp["t0"] <= sp["t1"] <= outer["t1"]
+    assert _spans(recs, "wgl.tables")[0]["t1"] <= \
+        _spans(recs, "wgl.eager")[0]["t0"]
+    assert not _spans(recs, "wgl.graph-capture")
+    assert not _spans(recs, "wgl.graph-replay")
+
+
+@pytest.mark.parametrize("calls", [1, 3])
+def test_independent_records_one_split_a_check(tmp_path, calls):
+    h = keyed_register_history(n_keys=3, n_ops=20, n_procs=4, faulted=(),
+                               corrupted=())
+    checker = Independent(LinearizableChecker(
+        lambda: VersionedRegister(0, None)))
+    outs, recs = _recorded(tmp_path, lambda: [
+        checker.check({}, h) for _ in range(calls)])
+    assert all(o["valid?"] is True for o in outs)
+    assert len(_spans(recs, "independent.split")) == calls
+    # each key's check is one DFS
+    assert len(_spans(recs, "oracle.dfs")) == 3 * calls
+
+
+@pytest.mark.parametrize("calls", [1, 3])
+def test_check_history_records_one_dfs_a_call(tmp_path, calls):
+    h = gen_history(random.Random(3), n_procs=4, n_ops=30)
+    outs, recs = _recorded(tmp_path, lambda: [
+        check_history(VersionedRegister(0, None), h)
+        for _ in range(calls)] + [
+        check_history(VersionedRegister(0, None), [])])
+    assert outs[0]["valid?"] is True and outs[-1]["ops"] == 0
+    dfs = _spans(recs, "oracle.dfs")
+    # the empty history has nothing to search, and no span
+    assert len(dfs) == calls
+    assert all(sp["attrs"] == {"ops": outs[0]["ops"]} for sp in dfs)
+
+
+def test_collect_records_the_wait_for_the_wave_kernel(tmp_path):
+    """B1's CPU route: one launch, then one ``mxu.collect`` over the
+    chunks it launched."""
+    packs = [port_wgl.pack_register_history(
+        gen_history(random.Random(s), n_procs=4, n_ops=20))
+        for s in (1, 2)]
+    outs, recs = _recorded(tmp_path, lambda: wgl_mxu.check_packed_batch_mxu(
+        packs, device="cpu"))
+    assert [o["engine"] for o in outs] == ["mxu-wave", "mxu-wave"]
+    [launch] = _spans(recs, "mxu.launch")
+    [collect] = _spans(recs, "mxu.collect")
+    assert collect["attrs"] == {"chunks": launch["attrs"]["chunks"]}
+    assert launch["t1"] <= collect["t0"]
+
+
+def test_ladder_records_do_not_grow_with_waves(tmp_path):
+    """Two keys of different length, one rung each: the same records
+    (spans, counters, histogram samples), whatever the waves."""
+    def records(n_ops):
+        out, recs = _recorded(tmp_path, lambda: port_wgl.check_packed(
+            _info_key(n_ops), f_max=32, device="cpu"))
+        return out, sorted((r["kind"], r["name"], r.get("count"))
+                           for r in recs)
+
+    (short, a), (long, b) = records(40), records(80)
+    assert short["rungs"] == long["rungs"] == 1
+    assert long["waves"] > 2 * short["waves"]
+    assert a == b
 
 
 # ---- bench cells share the run span schema ----------------------------------
