@@ -8,12 +8,16 @@ PyTorch version on the card, drives the port's paths and shows that
 each launched its kernel: single-key linearizability checking of a
 27,000-entry register history through ``TPULinearizableChecker`` (kernel
 wgl_wave), the watch checker on five watchers' logs of 12,000 values
-each (kernel indel_bits), the capacity ladder (PyTorch ops on the
-card, at real size on a 26,992-entry history whose wave-kernel search
-overflows, its waves replayed from CUDA graphs and held against the
-eager loop), the spill BFS and ``check_prefix``, and the keyed register
-check: the register workload's checker, ``Independent(Compose({linear,
-session}))``, on 32 keys x 2,000 ops (wgl_wave's batched launch, once on
+each (kernel indel_bits), the capacity ladder (kernel wgl_rung for
+rungs of one-word windows up to 128, PyTorch ops on the card above,
+at real size on a 26,992-entry history whose wave-kernel search
+overflows, held against the same rungs as PyTorch ops replayed from
+CUDA graphs and issued one by one, and on two info-op keys the size of
+the benchmark's faulted keys, its info classes included, dict and
+frozen frontier bytes), the spill BFS and
+``check_prefix``, and the keyed register check: the register
+workload's checker, ``Independent(Compose({linear, session}))``, on
+32 keys x 2,000 ops (wgl_wave's batched launch, once on
 the card's one lane and once split over two lanes of it, and the
 batched ladder for the faulted keys). wgl_wave is held on fuzz at
 every window width, unversioned concurrent writes, a 64-key batch, the
@@ -85,8 +89,10 @@ bitflips, watch under kill and lock-set under clock faults, each through
 versions): equal history bytes and dicts, every register key equal to
 the native DFS, lock-set losing adds. The frame
 tables (``build_tables``, held against the host packer) and the
-unsharded ladder rung (CUDA graphs held against the same ops issued
-one by one) are timed at the register and ladder-at-real-size cells.
+unsharded ladder rung (the rung kernel, csrc/wgl_rung.cu, held against
+its plain version, the same rungs as PyTorch ops replayed from CUDA
+graphs and issued one by one) are timed at the register and
+ladder-at-real-size cells.
 Holds that need no card run in worker processes while the card's
 sections go on: the ladder-at-real-size histories' wgl_wave plain
 versions on host copies of their tables, Elle's host legs (the 500-txn
@@ -153,6 +159,13 @@ LADDER_BIG_PROCS, LADDER_BIG_AT = 8, 0.9
 #: dur_scale=6.0) of a valid info-op history whose frontier peaks at 270:
 #: the ladder climbs 32 -> 128 -> 256 -> 512
 LADDER_SEED = 40
+#: info-op keys the size of a faulted key of the benchmark's cell:
+#: gen_history seeds (n_procs=10, info_rate=0.01) of 1,600 entries, R
+#: 1,248 and 1,246 with 7 and 13 :info ops, info classes padded to 8 and
+#: 16 (one count word). The first climbs 32 -> 128, the second 32 ->
+#: 128 -> 256 -> 512, so the rung kernel runs its class candidates on
+#: both and hands the second's frozen frontier to the PyTorch rungs
+INFO_KEY_SEEDS, INFO_KEY_OPS = (20, 21), 1_600
 #: the keyed register cell (testing.keyed_register_history): 32 keys of
 #: 2,000 ops, 10 processes a key (the reference's register test with
 #: --ops-per-key 2000, 2n threads a key on 5 nodes). Keys 3, 11, 19 and
@@ -2348,24 +2361,42 @@ def service_phase(card: str, dev) -> list:
         fail("wgl_wave disagrees with its plain version at the tick shape")
     del tab, scal
 
-    # the sharded rung over two lanes of the card, against one lane
+    # the sharded rung over two lanes of the card, against its plain
+    # version (the unsharded rung as PyTorch ops: the rung kernel's route
+    # off) and against the unsharded rung in the kernel
     rung = camp[:SVC_RUNG_KEYS]
     one_lane = wgl_mxu.batch_lanes
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    want = wgl.check_packed_batch(rung, try_fused=False, device=dev)
-    torch.cuda.synchronize()
-    plain_s = time.perf_counter() - t0
+    kernel_max = wgl.RUNG_KERNEL_F_MAX
+    walls = {}
+    try:
+        for route, f_max in (("plain", 0), ("one lane", kernel_max)):
+            wgl.RUNG_KERNEL_F_MAX = f_max
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs = wgl.check_packed_batch(rung, try_fused=False, device=dev)
+            torch.cuda.synchronize()
+            walls[route] = time.perf_counter() - t0
+            outs = [{k: v for k, v in o.items() if k != "_resume"}
+                    for o in outs]
+            if route == "plain":
+                want = outs
+            elif outs != want:
+                fail(f"the unsharded rung in the kernel {outs} != as "
+                     f"PyTorch ops {want}")
+    finally:
+        wgl.RUNG_KERNEL_F_MAX = kernel_max
+    plain_s = walls["plain"]
     wgl_mxu.batch_lanes = lambda device=None: (
         [torch.device(device)] if device is not None else [dev, dev])
     try:
-        wgl.SHARDED_LAUNCHES = 0
+        wgl.SHARDED_LAUNCHES = wgl.RUNG_KERNEL_LAUNCHES = 0
         t0 = time.perf_counter()
         sharded = wgl.check_packed_batch(rung, try_fused=False,
                                          shard=True)
         torch.cuda.synchronize()
         rung_s = time.perf_counter() - t0
         rung_launches = wgl.SHARDED_LAUNCHES
+        in_kernel = wgl.RUNG_KERNEL_LAUNCHES
     finally:
         wgl_mxu.batch_lanes = one_lane
     strip = [{k: v for k, v in o.items() if k != "_resume"}
@@ -2385,9 +2416,11 @@ def service_phase(card: str, dev) -> list:
                / ALU32_OPS_PER_S * 1e3)
     print(f"sharded batched rung on {card}: {len(rung)} campaign keys at "
           f"rung 128 (kernel not run: try_fused=False) split over two "
-          f"lanes of the card, {rung_launches} lane launches: "
-          f"{rung_s:.3f} s; the unsharded rung on one lane {plain_s:.3f} "
-          f"s; waves a key {rung_waves} "
+          f"lanes of the card, {rung_launches} lane launches, "
+          f"{in_kernel} rung runs in the rung kernel: "
+          f"{rung_s:.3f} s; the unsharded rung on one lane in the kernel "
+          f"{walls['one lane']:.3f} s, as PyTorch ops (its plain version) "
+          f"{plain_s:.3f} s; waves a key {rung_waves} "
           f"({rung_s / max(1, max(rung_waves)) * 1e3:.3f} ms a wave of "
           f"the longest lane); bound {max(rbytes_ms, rops_ms):.4f} ms "
           f"(operations: {sum(rung_waves)} waves x 128 states x "
@@ -2404,8 +2437,10 @@ def service_phase(card: str, dev) -> list:
              "ms": b1_ms, "plain_ms": plain_ms, "bound_ms": bound,
              "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
              "library_ms": None},
-            {"name": "wgl_rung_sharded", "route": "torch",
-             "source": "jepsen_etcd_tpu_torch/ops/wgl.py",
+            {"name": "wgl_rung_sharded",
+             "route": "cuda" if in_kernel else "torch",
+             "source": "jepsen_etcd_tpu_torch/csrc/wgl_rung.cu" if in_kernel
+             else "jepsen_etcd_tpu_torch/ops/wgl.py",
              "replaces": "jepsen_etcd_tpu/ops/wgl.py:1966",
              "launches": rung_launches, "max_abs_err": rung_err,
              "ms": rung_s * 1e3, "plain_ms": plain_s * 1e3,
@@ -4012,9 +4047,9 @@ def frame_tables_entry(p, card: str, dev, launches: int) -> dict:
 
 def ladder_rungs(p, dev) -> tuple:
     """The ladder alone on one pack, as ``check_packed(p, f_max=32)``
-    climbs it (rung 32, then up), its waves replayed from CUDA graphs:
-    (accepted, waves, peak, waves run at each rung's capacity,
-    seconds)."""
+    climbs it (rung 32, then up), each rung run in the rung kernel where
+    it takes it: (accepted, waves, peak, (capacity, waves, seconds) of
+    each rung run, seconds in all, tables included)."""
     import torch
     from jepsen_etcd_tpu_torch.ops import wgl
     torch.cuda.synchronize()
@@ -4022,59 +4057,163 @@ def ladder_rungs(p, dev) -> tuple:
     ladder = wgl._ladder(p, wgl.LADDER[0])
     ni = wgl.info_dims(p)[1]
     tables = wgl.device_tables(p, dev)
-    valid, overflow, k, peak, frontier = wgl._wgl_loop(
-        tables, p.R, p.I, ladder[0], p.w,
-        (0, *wgl._initial_frontier(ladder[0], p.w // 32, ni, dev)))
-    per_rung = [(ladder[0], k)]
-    peak_all = max(1, peak)
-    for f_next in ladder[1:]:
-        if not overflow:
-            break
+    k, frontier = 0, wgl._initial_frontier(ladder[0], p.w // 32, ni, dev)
+    per_rung = []
+    peak_all = 1
+    for f in ladder:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
         k0 = k
         valid, overflow, k, peak, frontier = wgl._wgl_loop(
-            tables, p.R, p.I, f_next, p.w,
-            (k, *wgl._grow(frontier, f_next)))
-        per_rung.append((f_next, k - k0))
+            tables, p.R, p.I, f, p.w, (k, *frontier))
+        torch.cuda.synchronize()
+        per_rung.append((f, k - k0, time.perf_counter() - t1))
         peak_all = max(peak_all, peak)
+        if not overflow or len(per_rung) == len(ladder):
+            break
+        frontier = wgl._grow(frontier, ladder[len(per_rung)])
     torch.cuda.synchronize()
     return valid, k, peak_all, per_rung, time.perf_counter() - t0
 
 
-def rung_entry(p, card: str, dev, launches: int, eager: dict,
-               eager_s: float) -> dict:
-    """The unsharded B3 rung (``_expand`` / ``_wgl_loop`` /
-    ``_graph_waves``) at the ladder-at-real-size cell: the ladder alone,
-    its waves replayed from CUDA graphs, held against ``eager`` (the
-    checker's ``check_packed`` with the same ops issued one by one, its
-    plain version, which took ``eager_s``); the bound counted from the
-    waves each rung ran at its capacity, as the sharded rung's row."""
+def frontier_bytes(frontier) -> tuple:
+    """A frozen frontier (d, mask words, count words, v, n_alive) as its
+    rows' bytes on the host and its count."""
+    import torch
+    d, w, i, v, n = frontier
+    rows = torch.cat([d[:, None], w, i, v[:, None]], 1)
+    return rows.cpu().numpy().tobytes(), int(n)
+
+
+def info_key_holds(card: str, dev) -> None:
+    """The rung kernel with its info classes (count words ni = 1) on
+    info-op keys the size of a faulted key of the benchmark's cell
+    (``INFO_KEY_SEEDS``), against its plain version, the same rungs as
+    PyTorch ops (the kernel's route off, ``RUNG_KERNEL_F_MAX`` 0) on the
+    same tables: ``check_packed`` from rung 32 with the spill deferred,
+    the same dict; and rungs 32 and 128 from the empty frontier, paused
+    halfway and run whole, the same (accepted, overflow, k, peak) and
+    frozen frontier bytes. Prints a wave's time either way."""
+    import torch
+    from jepsen_etcd_tpu_torch.ops import wgl
+    from jepsen_etcd_tpu_torch.testing import gen_history
+    kernel_max = wgl.RUNG_KERNEL_F_MAX
+    routes = (("kernel", kernel_max), ("plain", 0))
+    try:
+        for seed in INFO_KEY_SEEDS:
+            p = wgl.pack_register_history(gen_history(
+                random.Random(seed), n_procs=10, n_ops=INFO_KEY_OPS,
+                info_rate=0.01))
+            c_pad, ni, _ = wgl.info_dims(p)
+            if not (p.ok and p.w == 32 and ni == 1 and c_pad):
+                fail(f"info-op key {seed}: not a one-word window with "
+                     f"info classes: w {p.w}, info dims {(c_pad, ni)}")
+            outs, walls, launches = {}, {}, {}
+            for route, f_max in routes:
+                wgl.RUNG_KERNEL_F_MAX = f_max
+                wgl.RUNG_KERNEL_LAUNCHES = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs[route] = wgl.check_packed(p, f_max=32, spill=False,
+                                               device=dev)
+                torch.cuda.synchronize()
+                walls[route] = time.perf_counter() - t0
+                launches[route] = wgl.RUNG_KERNEL_LAUNCHES
+            got, want = outs["kernel"], outs["plain"]
+            same_dict = {k: v for k, v in got.items() if k != "_resume"} \
+                == {k: v for k, v in want.items() if k != "_resume"}
+            if "_resume" in got or "_resume" in want:
+                same_dict = same_dict and "_resume" in got and \
+                    "_resume" in want and \
+                    got["_resume"][2] == want["_resume"][2] and \
+                    frontier_bytes(got["_resume"][1]) == \
+                    frontier_bytes(want["_resume"][1])
+            tables = wgl.device_tables(p, dev)
+            lines, same_runs = [], True
+            for f in (32, 128):
+                for k_stop in (p.R // 2, None):
+                    runs = {}
+                    for route, f_max in routes:
+                        wgl.RUNG_KERNEL_F_MAX = f_max
+                        init = (0, *wgl._initial_frontier(f, 1, ni, dev))
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        *head, fr = wgl._wgl_loop(tables, p.R, p.I, f, 32,
+                                                  init, k_stop)
+                        torch.cuda.synchronize()
+                        runs[route] = (tuple(head), frontier_bytes(fr),
+                                       time.perf_counter() - t0)
+                    same = runs["kernel"][:2] == runs["plain"][:2]
+                    same_runs = same_runs and same
+                    acc, ovf, k, peak = runs["kernel"][0]
+                    waves = max(1, k + (1 if ovf else 0))
+                    lines.append(
+                        f"F = {f} to {'the end' if k_stop is None else k_stop}"
+                        f": k {k}, peak {peak}, accepted {acc}, overflow "
+                        f"{ovf}, kernel {runs['kernel'][2] * 1e6 / waves:.2f}"
+                        f" us a wave, plain "
+                        f"{runs['plain'][2] * 1e6 / waves:.2f} us a wave, "
+                        f"same: {same}")
+            print(f"info-op key at the faulted cell's size on {card}: seed "
+                  f"{seed}, R {p.R}, I {p.I}, info dims {(c_pad, ni)}: "
+                  f"check_packed from rung 32 (spill deferred) rungs "
+                  f"{got.get('rungs')}, waves {got.get('waves')}, peak "
+                  f"{got.get('peak-frontier')}, {launches['kernel']} rung "
+                  f"run(s) in the kernel: {walls['kernel'] * 1e3:.1f} ms, "
+                  f"plain {walls['plain'] * 1e3:.1f} ms ({launches['plain']}"
+                  f" in the kernel); same dict and frozen frontier: "
+                  f"{same_dict}; rung runs from the empty frontier: "
+                  + "; ".join(lines), flush=True)
+            if not same_dict or not same_runs or launches["plain"] or \
+                    launches["kernel"] < 1:
+                fail(f"info-op key {seed}: the rung kernel disagrees with "
+                     f"its plain version: {got} against {want}")
+    finally:
+        wgl.RUNG_KERNEL_F_MAX = kernel_max
+
+
+def rung_entry(p, card: str, dev, launches: int, kernel_launches: int,
+               eager: dict, eager_s: float, graphs_s: float) -> dict:
+    """The unsharded B3 rung at the ladder-at-real-size cell: the ladder
+    alone, each rung run in the rung kernel (csrc/wgl_rung.cu), held
+    against ``eager`` (the checker's ``check_packed`` with the rungs as
+    PyTorch ops issued one by one, its plain version, which took
+    ``eager_s``; ``graphs_s`` with their waves replayed from CUDA
+    graphs); a wave's time at each rung's capacity; the bound counted
+    from the waves each rung ran at its capacity, as the sharded rung's
+    row."""
     from jepsen_etcd_tpu_torch.ops import wgl
     valid, waves, peak, per_rung, secs = ladder_rungs(p, dev)
     err = max(int(valid != eager["valid?"]),
               abs(waves - eager.get("waves", 0)),
               abs(peak - eager.get("peak-frontier", 0)),
               abs(len(per_rung) - eager.get("rungs", 0)))
-    ops = sum(k * f * p.w * WGL_OPS_PER_CANDIDATE for f, k in per_rung)
+    ops = sum(k * f * p.w * WGL_OPS_PER_CANDIDATE for f, k, _ in per_rung)
     ops_ms = ops / ALU32_OPS_PER_S * 1e3
     nbytes = sum(int(t.numel()) * t.element_size()
                  for t in wgl.device_tables(p, dev).values())
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    print(f"B3 rung on {card}: the ladder alone from rung 32, waves at "
-          f"each rung {per_rung}, accepted {valid}, peak {peak}: CUDA "
-          f"graphs {secs * 1e3:.1f} ms, eager (its plain version, through "
-          f"check_packed) {eager_s * 1e3:.1f} ms; {launches} rung run(s) "
-          f"on the checker's path; bound {max(ops_ms, bytes_ms):.4f} ms "
-          f"(operations {ops}: {ops_ms:.4f} ms; bytes {nbytes} of tables "
-          f"{bytes_ms:.4f} ms); max_abs_err {err}", flush=True)
+    per_wave = ", ".join(f"F = {f}: {k} waves, {s / max(1, k) * 1e6:.2f} "
+                         f"us a wave" for f, k, s in per_rung)
+    print(f"B3 rung on {card}: the ladder alone from rung 32 ({per_wave}), "
+          f"accepted {valid}, peak {peak}: rung kernel {secs * 1e3:.1f} ms "
+          f"with the tables; its plain version (PyTorch ops through "
+          f"check_packed) eager {eager_s * 1e3:.1f} ms, CUDA graphs "
+          f"{graphs_s * 1e3:.1f} ms; {launches} rung run(s) on the "
+          f"checker's path, {kernel_launches} in the kernel; bound "
+          f"{max(ops_ms, bytes_ms):.4f} ms (operations {ops}: "
+          f"{ops_ms:.4f} ms; bytes {nbytes} of tables {bytes_ms:.4f} ms); "
+          f"max_abs_err {err}", flush=True)
     if err:
-        fail("the graphed rung disagrees with its eager run")
-    if launches < 1:
-        fail("the checker's path ran no rung on the card")
-    return {"name": "wgl_rung", "route": "torch",
-            "source": "jepsen_etcd_tpu_torch/ops/wgl.py",
+        fail("the rung kernel disagrees with its plain version")
+    if kernel_launches < 1 or kernel_launches != launches:
+        fail("the checker's path ran a rung outside the rung kernel")
+    return {"name": "wgl_rung", "route": "cuda",
+            "source": "jepsen_etcd_tpu_torch/csrc/wgl_rung.cu",
             "replaces": "jepsen_etcd_tpu/ops/wgl.py:1669",
-            "launches": launches, "max_abs_err": err, "ms": secs * 1e3,
-            "plain_ms": eager_s * 1e3, "bound_ms": max(ops_ms, bytes_ms),
+            "launches": kernel_launches, "max_abs_err": err,
+            "ms": secs * 1e3, "plain_ms": eager_s * 1e3,
+            "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None}
 
@@ -4106,7 +4245,7 @@ def main() -> None:
     marks.append((1, time.perf_counter()))
     from concurrent.futures import ThreadPoolExecutor
     t0 = time.perf_counter()
-    sources = ["wgl_wave", "indel_bits", "drain_register"]
+    sources = ["wgl_wave", "indel_bits", "drain_register", "wgl_rung"]
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(_cuda.build, sources))
     print(f"build: {', '.join(s + '.cu' for s in sources)} (in parallel) "
@@ -4392,11 +4531,12 @@ def main() -> None:
             wgl_mxu.wave_search(tab, scal, wk).cpu(),
             hold_workers().submit(host_wave, tab.cpu().numpy(),
                                   scal.cpu().numpy(), wk)))
-        wgl.RUNG_LAUNCHES = 0
+        wgl.RUNG_LAUNCHES = wgl.RUNG_KERNEL_LAUNCHES = 0
         t0 = time.perf_counter()
         out = checker.check({}, hist)
         wall_l = time.perf_counter() - t0
         rung_launches = wgl.RUNG_LAUNCHES
+        kernel_launches = wgl.RUNG_KERNEL_LAUNCHES
         dfs = check_history(VersionedRegister(), hist)
         print(f"ladder at real size, {LADDER_BIG_PROCS} processes, "
               f"{len(hist)} entries, {what}: valid?={out['valid?']} "
@@ -4404,35 +4544,46 @@ def main() -> None:
               f"peak-frontier={out.get('peak-frontier')} waves="
               f"{out.get('waves')} overflowed-en-route="
               f"{out.get('overflowed-en-route', False)} check wall "
-              f"{wall_l:.3f} s; native DFS valid?={dfs['valid?']}",
+              f"{wall_l:.3f} s, rung runs {rung_launches} ({kernel_launches} "
+              f"in the rung kernel); native DFS valid?={dfs['valid?']}",
               flush=True)
         if out.get("engine") != engine or out["valid?"] is not dfs["valid?"]:
             fail(f"ladder at real size, {what}: {out}")
-    # the ladder alone (wave kernel, then rungs 32 and 128), its waves
-    # replayed from CUDA graphs and issued one by one: same dict
+    # the ladder alone (wave kernel, then rungs 32 and 128): in the rung
+    # kernel, and as its plain version, PyTorch ops replayed from CUDA
+    # graphs and issued one by one: the same dict
     p = wgl.pack_register_history(big_bad)
-    t0 = time.perf_counter()
-    graphed = wgl.check_packed(p)
-    torch.cuda.synchronize()
-    wall_graph = time.perf_counter() - t0
-    graph_min = wgl.GRAPH_MIN_WAVES
-    wgl.GRAPH_MIN_WAVES = 1 << 62
+    outs, walls = {}, {}
+    graph_min, kernel_max = wgl.GRAPH_MIN_WAVES, wgl.RUNG_KERNEL_F_MAX
     try:
-        t0 = time.perf_counter()
-        eager = wgl.check_packed(p)
-        torch.cuda.synchronize()
-        wall_eager = time.perf_counter() - t0
+        for name, f_max, g_min in [("rung kernel", kernel_max, graph_min),
+                                   ("CUDA graphs", 0, graph_min),
+                                   ("eager", 0, 1 << 62)]:
+            wgl.RUNG_KERNEL_F_MAX, wgl.GRAPH_MIN_WAVES = f_max, g_min
+            wgl.RUNG_KERNEL_LAUNCHES = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs[name] = wgl.check_packed(p)
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t0
+            if name == "rung kernel":
+                alone_launches = wgl.RUNG_KERNEL_LAUNCHES
     finally:
-        wgl.GRAPH_MIN_WAVES = graph_min
-    lwaves = graphed.get("waves", 0)
+        wgl.GRAPH_MIN_WAVES, wgl.RUNG_KERNEL_F_MAX = graph_min, kernel_max
+    lwaves = outs["rung kernel"].get("waves", 0)
     print(f"ladder at real size, check_packed: {lwaves} waves, rungs "
-          f"{graphed.get('rungs')}; CUDA graphs {wall_graph:.3f} s "
-          f"({wall_graph / lwaves * 1e3:.3f} ms a wave), eager "
-          f"{wall_eager:.3f} s ({wall_eager / lwaves * 1e3:.3f} ms a "
-          f"wave); same dict: {graphed == eager}", flush=True)
-    if graphed != eager or graphed.get("engine") != "jnp-ladder":
-        fail(f"ladder with CUDA graphs {graphed} != eager {eager}")
-    rung = rung_entry(p, card, dev, rung_launches, eager, wall_eager)
+          f"{outs['rung kernel'].get('rungs')}; " + ", ".join(
+              f"{name} {wall:.3f} s ({wall / lwaves * 1e3:.4f} ms a wave)"
+              for name, wall in walls.items())
+          + f"; rung kernel launches {alone_launches}; same dict: "
+          f"{all(o == outs['eager'] for o in outs.values())}", flush=True)
+    if any(o != outs["eager"] for o in outs.values()) or \
+            outs["eager"].get("engine") != "jnp-ladder" or \
+            alone_launches != outs["eager"].get("rungs"):
+        fail(f"ladder in the rung kernel and as PyTorch ops: {outs}")
+    rung = rung_entry(p, card, dev, rung_launches, kernel_launches,
+                      outs["eager"], walls["eager"], walls["CUDA graphs"])
+    info_key_holds(card, dev)
     lchecker = TPULinearizableChecker(cpu_cutoff=None)
     ladder_cases = [
         ("info-op history", gen_history(

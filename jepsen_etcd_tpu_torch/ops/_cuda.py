@@ -94,8 +94,11 @@ _INDEL = {"indel_bits_launch": (_I, [_P, _I, _P, _P, _I, _P, _P, _I, _P,
 _DRAIN = {"drain_register_launch": (_I, [_P] * 12 + [_I] * 7 + [_P]),
           "drain_register_smem": (_I, [_I] * 3),
           "drain_register_max_lanes": (_I, [])}
+_RUNG = {"wgl_rung_launch": (_I, [_P, _P, _I, _P, _I, _I, _P, _P, _P, _P,
+                                   _I, _I, _I, _I, _P]),
+         "wgl_rung_limit": (_I, [_I])}
 _SIGNATURES = {"wgl_wave": _WGL, "indel_bits": _INDEL,
-               "drain_register": _DRAIN}
+               "drain_register": _DRAIN, "wgl_rung": _RUNG}
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -139,6 +142,49 @@ def wgl_wave_profile(tab: torch.Tensor, scal: torch.Tensor,
                                    tab.shape[0], tab.shape[1], wk,
                                    _stream(tab))
     _check(lib, "wgl_wave", err)
+
+
+def wgl_rung(rows: torch.Tensor, info: torch.Tensor, cls: torch.Tensor,
+             fr: torch.Tensor, n_alive: torch.Tensor, out: torch.Tensor,
+             res: torch.Tensor, R: int, k0: int, lim: int) -> None:
+    """Launch csrc/wgl_rung.cu on the current stream: one rung run of
+    capacity ``fr.shape[0]`` from wave ``k0`` to at most ``lim``.
+    rows [r_pad, 196], info [r_pad, 2 * i_tab] and cls [c_pad, 8 + ni]
+    int32 (``wgl._rung_kernel_tables``), fr [F, 3 + ni] and n_alive [1]
+    int64 -> out [F, 3 + ni] and res [5] int64, all contiguous on one
+    CUDA device; rows must hold every depth below R. Raises ValueError
+    on anything else (the kernel refuses F, c_pad or ni beyond
+    ``wgl_rung_limits``)."""
+    ni = fr.shape[1] - 3
+    want = ((rows, torch.int32, None), (info, torch.int32, None),
+            (cls, torch.int32, None), (fr, torch.int64, None),
+            (n_alive, torch.int64, (1,)), (out, torch.int64, fr.shape),
+            (res, torch.int64, (5,)))
+    if any(t.device != fr.device or t.dtype != dt or not t.is_contiguous()
+           or (shape is not None and t.shape != shape)
+           for t, dt, shape in want) or fr.device.type != "cuda" \
+            or rows.dim() != 2 or rows.shape[1] != 196 \
+            or rows.shape[0] < R or ni < 0 \
+            or (ni and (cls.shape[1] != 8 + ni
+                        or info.shape[0] != rows.shape[0])):
+        raise ValueError("wgl_rung: inputs of the wrong device, type, "
+                         "layout or shape")
+    lib = _lib("wgl_rung")
+    with torch.cuda.device(fr.device):
+        err = lib.wgl_rung_launch(
+            rows.data_ptr(), info.data_ptr(), info.shape[1] // 2,
+            cls.data_ptr(), cls.shape[0], ni, fr.data_ptr(),
+            n_alive.data_ptr(), out.data_ptr(), res.data_ptr(), fr.shape[0],
+            R, k0, lim, _stream(fr))
+    _check(lib, "wgl_rung", err)
+
+
+@functools.lru_cache(maxsize=None)
+def wgl_rung_limits() -> tuple:
+    """(capacity, info classes, count words): the largest a
+    csrc/wgl_rung.cu launch takes, as the built kernel states them."""
+    lib = _lib("wgl_rung")
+    return tuple(int(lib.wgl_rung_limit(i)) for i in range(3))
 
 
 def indel_smem_optin(device: torch.device) -> int:

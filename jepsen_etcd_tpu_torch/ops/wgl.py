@@ -14,8 +14,10 @@ per-depth [R, W] frame tables.
 Engines, in the order ``check_packed`` tries them: the wave kernel
 (ops/wgl_mxu.py, frontier 32, no info ops); the capacity ladder
 (``_expand`` / ``_wgl_loop`` as PyTorch ops on the device, rungs 32 ->
-4096, each rung resuming the frozen frontier of the last); past the top
-rung the host-driven spill BFS (``_spill_bfs``), which is complete.
+4096, each rung resuming the frozen frontier of the last; on the card
+the rung kernel csrc/wgl_rung.cu runs a rung of a one-word window up to
+128 in one launch); past the top rung the host-driven spill BFS
+(``_spill_bfs``), which is complete.
 ``check_prefix`` is the ladder paused every few waves (the streaming
 API).
 
@@ -83,6 +85,18 @@ SPILL_WALL_BUDGET_S = 60.0  # hopeless-width searches must fail fast
 #: rung runs (``_wgl_loop`` calls) on the card in this process; a caller
 #: may reset it to 0 to count one run
 RUNG_LAUNCHES = 0
+#: on the card, the rung kernel (csrc/wgl_rung.cu) takes a rung run whose
+#: window is one word, whose capacity is at most this, and whose
+#: capacity, info classes and count words the kernel takes
+#: (``_cuda.wgl_rung_limits``): its whole wave loop in one launch. Other
+#: rung runs are PyTorch ops, graphed below; 0 sends every one there.
+RUNG_KERNEL_F_MAX = 128
+#: the rung kernel's int32 tables, kept in a ladder's tables dict beside
+#: the int64 tables they narrow (``_rung_kernel_tables``)
+RUNG_TABLES = ("rung_rows", "rung_info", "rung_cls")
+#: rung runs the rung kernel took in this process (of RUNG_LAUNCHES); a
+#: caller may reset it to 0 to count one run
+RUNG_KERNEL_LAUNCHES = 0
 
 #: waves between host reads of the ladder's loop condition. Waves past
 #: the end are masked no-ops, so any value gives the same result.
@@ -1669,14 +1683,16 @@ def _wgl_loop(tables: dict, R: int, I: int, f_max: int, w: int, init0,
     next rung or the spill) or ``k_stop`` waves (the streaming pause;
     None keeps the R + I + 1 exhaustion bound).
 
-    Every carry is masked by ``active`` (the reference's vmap-safety
-    guard), so waves run past the end are no-ops: the host reads the
-    loop condition only every ``SYNC_EVERY`` waves, and on the card a
-    long run replays batches of waves from a CUDA graph
+    On the card the rung kernel takes the run where it can
+    (``_rung_kernel_takes``: one launch, ``_rung_kernel_loop``).
+    Otherwise every carry is masked by ``active`` (the reference's
+    vmap-safety guard), so waves run past the end are no-ops: the host
+    reads the loop condition only every ``SYNC_EVERY`` waves, and on the
+    card a long run replays batches of waves from a CUDA graph
     (``_graph_waves``). Returns (accepted, overflow, k, peak, frontier)
     with the first four as Python values and the frontier's tensors on
-    the device. One ``wgl.eager`` span a call, around the eager waves
-    and their syncs, however many run."""
+    the device. One ``wgl.eager`` span a call that the kernel does not
+    take, around the eager waves and their syncs, however many run."""
     global RUNG_LAUNCHES
     k0, dvec, wvec, ivec, vvec, n_alive = init0
     dev = dvec.device
@@ -1686,6 +1702,9 @@ def _wgl_loop(tables: dict, R: int, I: int, f_max: int, w: int, init0,
     lim = (R + I + 1) if k_stop is None else min(k_stop, R + I + 1)
     i64 = torch.int64
     n_alive = torch.as_tensor(n_alive, dtype=i64, device=dev)
+    if _rung_kernel_takes(dev, f_max, w, ivec.shape[1], tables):
+        return _rung_kernel_loop(tables, R, lim, k0, dvec, wvec, ivec, vvec,
+                                 n_alive)
     # carry: k, dvec, wvec, ivec, vvec, n_alive, peak, overflow, accepted
     carry = [torch.tensor(k0, dtype=i64, device=dev), dvec, wvec, ivec,
              vvec, n_alive, n_alive.clone(),
@@ -1728,6 +1747,84 @@ def _wgl_loop(tables: dict, R: int, I: int, f_max: int, w: int, init0,
     k, dvec, wvec, ivec, vvec, n_alive, peak, overflow, accepted = carry
     return (bool(accepted), bool(overflow), int(k), int(peak),
             (dvec, wvec, ivec, vvec, n_alive))
+
+
+def _rung_kernel_takes(dev: torch.device, f_max: int, w: int, ni: int,
+                       tables: dict) -> bool:
+    """Whether the rung kernel takes a rung run: on the card, with a
+    one-word window and a capacity of at most ``RUNG_KERNEL_F_MAX``,
+    within the capacity, info classes and count words the kernel
+    states."""
+    if dev.type != "cuda" or w != W or f_max > RUNG_KERNEL_F_MAX:
+        return False
+    from . import _cuda
+    f_cap, c_cap, ni_cap = _cuda.wgl_rung_limits()
+    c_pad = tables["c_size"].shape[-1] if ni else 0
+    return f_max <= f_cap and c_pad <= c_cap and ni <= ni_cap
+
+
+def _as_i32(t: torch.Tensor) -> torch.Tensor:
+    """int64 values of 32 bits, signed or unsigned, as their int32
+    bits."""
+    return torch.where(t >= 2 ** 31, t - 2 ** 32, t).to(torch.int32)
+
+
+def _rung_kernel_tables(tables: dict, ni: int) -> tuple:
+    """The ladder's int64 tables narrowed to the rung kernel's int32
+    ones: (rows [r_pad, 196]: a depth's fsk (static_ok ? 1 + f_code :
+    0), a1, a2, ver, pred word and ceiling for each of the 32 window
+    ops, then shift, u_forced, ceil_beyond and the update-mask word;
+    info [r_pad, 2 * i_tab]: the members' pred words, then their
+    static_ok; cls [c_pad, 8 + ni]: f, a1, a2, size, first member, count
+    word (clamped to the ni words), shift, mask, increment words). Made
+    once a tables dict and kept in it under ``RUNG_TABLES``; a group's
+    stacked tables (a leading key axis) narrow the same way, once a
+    lane, and each key's dict slices them."""
+    t = tables
+    if RUNG_TABLES[0] not in t:
+        fsk = torch.where(t["static_ok"], t["f_code"] + 1, 0)
+        rows = torch.cat([fsk, t["a1"], t["a2"], t["ver"],
+                          t["pred_frame"][..., 0], t["ceil_frame"],
+                          t["shift"][..., None], t["u_forced"][..., None],
+                          t["ceil_beyond"][..., None], t["upd_mask"]], -1)
+        if ni:
+            info = torch.cat([t["ipred_frame"][..., 0],
+                              t["i_static_ok"].to(torch.int64)], -1)
+            cls = torch.cat([torch.stack([t["c_f"], t["c_a1"], t["c_a2"],
+                                          t["c_size"], t["c_off"],
+                                          t["c_word"].clamp(0, ni - 1),
+                                          t["c_shift"], t["c_mask"]], -1),
+                             t["c_inc"]], -1)
+        else:
+            info = cls = fsk.new_zeros(fsk.shape[:-2] + (0, 0))
+        t.update(zip(RUNG_TABLES, (_as_i32(x).contiguous()
+                                   for x in (rows, info, cls))))
+    return tuple(t[name] for name in RUNG_TABLES)
+
+
+def _rung_kernel_loop(tables: dict, R: int, lim: int, k0: int, dvec, wvec,
+                      ivec, vvec, n_alive):
+    """``_wgl_loop``'s rung run in one launch of csrc/wgl_rung.cu, with
+    one sync: the same (accepted, overflow, k, peak, frontier), the
+    frontier's rows as int64 views of the kernel's output. One
+    ``wgl.rung-kernel`` span and counter a call."""
+    global RUNG_KERNEL_LAUNCHES
+    from . import _cuda
+    tel = telemetry.current()
+    ni = ivec.shape[1]
+    with tel.span("wgl.rung-kernel"):
+        rows, info, cls = _rung_kernel_tables(tables, ni)
+        fr = torch.cat([dvec[:, None], wvec, ivec, vvec[:, None]], 1)
+        out = torch.empty_like(fr)
+        res = torch.empty(5, dtype=torch.int64, device=fr.device)
+        _cuda.wgl_rung(rows, info, cls, fr, n_alive.reshape(1), out, res,
+                       R, k0, lim)
+        accepted, overflow, k, peak, _ = res.tolist()
+    with _sharded_lock:
+        RUNG_KERNEL_LAUNCHES += 1
+    tel.counter("wgl.rung-kernel")
+    return (bool(accepted), bool(overflow), k, peak,
+            (out[:, 0], out[:, 1:2], out[:, 2:2 + ni], out[:, -1], res[4]))
 
 
 def _graph_waves(wave, running, carry: list, n_waves: int):
@@ -2080,6 +2177,8 @@ def _check_bucket_group(packs: list, results: list, idxs: list,
             stacked = _tables_to({name: a[rows.start:rows.stop]
                                   for name, a in prepared.stacked.items()},
                                  dev)
+            if _rung_kernel_takes(dev, f_max, w, info[1], stacked):
+                _rung_kernel_tables(stacked, info[1])
         out = []
         for j in rows:
             p = packs[idxs[j]]

@@ -96,6 +96,8 @@ REGISTRY = {
                               # CUDA-graph capture
         "wgl.graph-replay",   # ... the run's graph replays and syncs
         "wgl.eager",          # ... its host-launched waves (the rest)
+        "wgl.rung-kernel",    # ... or the run in one launch of
+                              # csrc/wgl_rung.cu (tables, launch, sync)
         "independent.split",  # checkers/independent.py: the per-key
                               # split
         "oracle.dfs",         # checkers/linearizable.py check_history:
@@ -183,6 +185,7 @@ REGISTRY = {
         "service.wgl_wave_launches",  # wave-kernel launches a tick's
                                   # jobs made, each counted on its own
                                   # thread
+        "wgl.rung-kernel",        # rung runs csrc/wgl_rung.cu took
         "service.pack_s",         # host packing wall per tick (the
                                   # half double-buffering overlaps with
                                   # the previous tick's device wall)

@@ -217,14 +217,16 @@ def test_routing_constants_equal_reference():
 
 #: the blocks the port's telemetry.py adds to the reference's: the
 #: registry entries of the spans inside the port's ladder, split and
-#: DFS, and of the service's wave-kernel launch counter, which only the
-#: port records
+#: DFS, and of the service's wave-kernel launch counter and the rung
+#: kernel's, which only the port records
 PORT_REGISTRY = ("""        "wgl.tables",         # ops/wgl.py: a ladder's tables padded and
                               # copied to the card (a key, a lane)
         "wgl.graph-capture",  # ... a rung run's warm-up wave and its
                               # CUDA-graph capture
         "wgl.graph-replay",   # ... the run's graph replays and syncs
         "wgl.eager",          # ... its host-launched waves (the rest)
+        "wgl.rung-kernel",    # ... or the run in one launch of
+                              # csrc/wgl_rung.cu (tables, launch, sync)
         "independent.split",  # checkers/independent.py: the per-key
                               # split
         "oracle.dfs",         # checkers/linearizable.py check_history:
@@ -232,6 +234,7 @@ PORT_REGISTRY = ("""        "wgl.tables",         # ops/wgl.py: a ladder's table
 """, """        "service.wgl_wave_launches",  # wave-kernel launches a tick's
                                   # jobs made, each counted on its own
                                   # thread
+        "wgl.rung-kernel",        # rung runs csrc/wgl_rung.cu took
 """)
 
 

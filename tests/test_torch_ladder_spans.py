@@ -1,9 +1,10 @@
 """The spans inside the ladder's graphed rung, on the card: a rung run
-long enough for a CUDA graph records its capture, its replays and its
-eager tail, in that order inside ``wgl.check_packed``, and recording
-them changes no verdict. The CPU's side (no graphs there) is in
-``tests/test_torch_telemetry.py``. Runs on a card without JAX:
-``python -m pytest --noconftest -m cuda tests/test_torch_ladder_spans.py``.
+that the rung kernel does not take and long enough for a CUDA graph
+records its capture, its replays and its eager tail, in that order
+inside ``wgl.check_packed``, and recording them changes no verdict.
+The CPU's side (no graphs there) is in ``tests/test_torch_telemetry.py``.
+Runs on a card without JAX: ``python -m pytest --noconftest -m cuda
+tests/test_torch_ladder_spans.py``.
 """
 
 import random
@@ -20,9 +21,12 @@ RUNG = ("wgl.graph-capture", "wgl.graph-replay", "wgl.eager")
 
 
 @pytest.mark.cuda
-def test_a_graphed_rung_records_capture_replay_then_eager(tmp_path):
+def test_a_graphed_rung_records_capture_replay_then_eager(tmp_path,
+                                                        monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: CUDA graphs have no CPU mode")
+    # the rung kernel's route off: rungs 32 and 128 take the graphs
+    monkeypatch.setattr(wgl, "RUNG_KERNEL_F_MAX", 0)
     h = impossible_read_at(gen_history(random.Random(2026), n_procs=8,
                                        n_ops=1500), 0.9)
     p = wgl.pack_register_history(h)

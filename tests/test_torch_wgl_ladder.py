@@ -137,11 +137,13 @@ def test_wave_kernel_overflow_restarts_the_ladder_like_the_reference(seed):
 
 @pytest.mark.cuda
 def test_graph_replayed_waves_equal_the_eager_loop(monkeypatch):
-    """On the card, long rungs replay their waves from a CUDA graph:
-    the same operations, so the same dict as one launch per
-    operation."""
+    """On the card, long rungs that the rung kernel does not take
+    replay their waves from a CUDA graph: the same operations, so the
+    same dict as one launch per operation. The kernel's route is off
+    here, so that rungs 32 and 128 take the graphs."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: CUDA graphs have no CPU mode")
+    monkeypatch.setattr(wgl, "RUNG_KERNEL_F_MAX", 0)
     h = impossible_read_at(port_gen_history(random.Random(2026), n_procs=8,
                                             n_ops=1500), 0.9)
     p = wgl.pack_register_history(h)

@@ -1,0 +1,209 @@
+"""The rung kernel (``csrc/wgl_rung.cu``) on the card, held against the
+plain path, the same rung runs as PyTorch ops on the same tables (the
+kernel's route off: ``RUNG_KERNEL_F_MAX`` 0).
+
+Equal, exactly: the dicts (``waves``, ``peak-frontier``, ``rungs``, the
+verdict), and the frozen frontier's bytes at every ``check_prefix``
+pause and in a ``spill=False`` hand-off. Inputs: the ladder tests' fuzz
+at w = 32, with and without info ops and corruption; the benchmark's
+faulted key shape (``gen_register_history`` at ``info_rate`` 0.01),
+alone and as a batched group at F = 128; a search that climbs 32 ->
+128 -> 256 and up; a batched rung whose key climbs from 512; and
+``check_prefix`` at every budget. The kernel has no CPU mode (its numpy
+model is ``tests/test_torch_wgl_rung_model.py``). Runs on a card
+without JAX: ``python -m pytest --noconftest -m cuda
+tests/test_torch_wgl_rung.py``.
+"""
+
+import random
+
+import pytest
+import torch
+
+from benchmark.traffic.register_pool import _rng
+from benchmark.traffic.synth import gen_register_history
+from jepsen_etcd_tpu_torch.core.history import History
+from jepsen_etcd_tpu_torch.ops import wgl
+from jepsen_etcd_tpu_torch.testing import concurrent_writes_history, \
+    gen_history
+
+BUDGETS = (1, 7, 64, 10 ** 6)
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the rung kernel has no CPU mode")
+    return torch.device("cuda", 0)
+
+
+@pytest.fixture
+def plain(monkeypatch):
+    """``plain(fn)``: fn() with the kernel's route off."""
+    def run(fn):
+        with monkeypatch.context() as m:
+            m.setattr(wgl, "RUNG_KERNEL_F_MAX", 0)
+            return fn()
+    return run
+
+
+def frontier_bytes(fr) -> tuple:
+    d, w, i, v, n = fr
+    rows = torch.cat([d[:, None], w, i, v[:, None]], 1)
+    return rows.cpu().numpy().tobytes(), int(n)
+
+
+def strip(out: dict) -> dict:
+    return {k: v for k, v in out.items() if k != "_resume"}
+
+
+def fuzz(info: bool, corrupt: bool, seed: int, n: int = 3) -> list:
+    """n w = 32 packs of the ladder tests' fuzz shape."""
+    rng = random.Random(seed)
+    got = []
+    while len(got) < n:
+        p = wgl.pack_register_history(gen_history(
+            rng, n_procs=4, n_ops=30, corrupt=corrupt,
+            info_rate=0.2 if info else 0.0))
+        if p.ok and p.w == 32 and (p.I > 0) == info:
+            got.append(p)
+    return got
+
+
+def faulted_key(j: int):
+    """Fixed faulted key j of the benchmark's cell, packed."""
+    ops = gen_register_history(_rng("fixed", "faulted", j), n_ops=2000,
+                               info_rate=0.01)
+    return wgl.pack_register_history(History(ops))
+
+
+def ladder_packs() -> list:
+    """The first 28 packs of the ladder tests' rung-climbing generator."""
+    rng = random.Random(31)
+    return [wgl.pack_register_history(gen_history(
+        rng, n_procs=10, n_ops=60, values=4, info_rate=0.25, dur_scale=6.0))
+        for _ in range(28)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("info,corrupt", [(False, False), (False, True),
+                                          (True, False), (True, True)])
+def test_kernel_equals_plain_on_fuzz(card, plain, monkeypatch, info,
+                                     corrupt):
+    monkeypatch.setattr(wgl, "RUNG_KERNEL_LAUNCHES", 0)
+    for p in fuzz(info, corrupt, seed=3200 + 10 * info + corrupt):
+        got = wgl.check_packed(p, f_max=32, device=card)
+        assert got == plain(lambda: wgl.check_packed(p, f_max=32,
+                                                     device=card))
+        # one rung run, paused at each k_stop: the frozen frontier
+        tables = wgl.device_tables(p, card)
+        ni = wgl.info_dims(p)[1]
+        for f, k_stop in [(32, None), (128, None), (32, 5), (128, 1)]:
+            init = (0, *wgl._initial_frontier(f, 1, ni, card))
+            run = wgl._wgl_loop(tables, p.R, p.I, f, 32, init, k_stop)
+            want = plain(lambda: wgl._wgl_loop(tables, p.R, p.I, f, 32,
+                                               init, k_stop))
+            assert run[:4] == want[:4]
+            assert frontier_bytes(run[4]) == frontier_bytes(want[4])
+    assert wgl.RUNG_KERNEL_LAUNCHES > 0
+
+
+@pytest.mark.cuda
+def test_kernel_equals_plain_on_the_benchmarks_faulted_keys(card, plain,
+                                                            monkeypatch):
+    """Two of the faulted cell's fixed keys (1,582 and 1,588 ops, 12 or
+    13 info ops): each alone on the ladder from rung 32, and the two as
+    one batched group at F = 128, every rung run in the kernel."""
+    packs = [faulted_key(0), faulted_key(1)]
+    assert wgl.group_key(packs[0]) == wgl.group_key(packs[1])
+    monkeypatch.setattr(wgl, "RUNG_LAUNCHES", 0)
+    monkeypatch.setattr(wgl, "RUNG_KERNEL_LAUNCHES", 0)
+    for p in packs:
+        got = wgl.check_packed(p, f_max=32, device=card)
+        assert got == plain(lambda: wgl.check_packed(p, f_max=32,
+                                                     device=card))
+        assert got["valid?"] is True and got["waves"] > 1500
+    got = wgl.check_packed_batch(packs, try_fused=False, device=card)
+    want = plain(lambda: wgl.check_packed_batch(packs, try_fused=False,
+                                                device=card))
+    assert got == want and all(g["batched"] for g in got)
+    # the plain runs counted rung runs too; the kernel's were its own
+    assert wgl.RUNG_KERNEL_LAUNCHES == 4
+    assert wgl.RUNG_LAUNCHES == 8
+
+
+@pytest.mark.cuda
+def test_kernel_equals_plain_on_a_search_that_climbs(card, plain):
+    """Rungs 32 and 128 overflow in the kernel and the plain rungs of
+    256 and up resume their frozen frontiers; past the top rung the
+    spill=False hand-off carries the same frontier bytes."""
+    p = ladder_packs()[20]
+    got = wgl.check_packed(p, f_max=32, device=card)
+    assert got == plain(lambda: wgl.check_packed(p, f_max=32, device=card))
+    assert got["rungs"] >= 3
+    q = wgl.pack_register_history(concurrent_writes_history(16,
+                                                            read_val=1))
+    got = wgl.check_packed(q, f_max=32, spill=False, device=card)
+    want = plain(lambda: wgl.check_packed(q, f_max=32, spill=False,
+                                          device=card))
+    assert strip(got) == strip(want) and got["overflow"]
+    assert got["_resume"][2] == want["_resume"][2]
+    assert frontier_bytes(got["_resume"][1]) == \
+        frontier_bytes(want["_resume"][1])
+
+
+@pytest.mark.cuda
+def test_kernel_equals_plain_on_a_batched_rung_that_overflows(card, plain):
+    """One key of a batched group settles at 128, the other overflows it
+    and climbs from F_MAX = 512."""
+    packs = ladder_packs()
+    group = [packs[27], packs[7]]
+    got = wgl.check_packed_batch(group, try_fused=False, device=card)
+    want = plain(lambda: wgl.check_packed_batch(group, try_fused=False,
+                                                device=card))
+    assert [strip(g) for g in got] == [strip(x) for x in want]
+    assert "batched" not in got[0] and got[1]["batched"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("budget", BUDGETS)
+def test_check_prefix_equals_plain_at_every_pause(card, plain, budget):
+    hists = [gen_history(random.Random(s), n_procs=5, n_ops=40,
+                         info_rate=0.1 if s % 2 else 0.0) for s in (7, 21)]
+    hists.append(gen_history(random.Random(31), n_procs=10, n_ops=60,
+                             values=4, info_rate=0.25, dur_scale=6.0))
+    for h in hists:
+        p = wgl.pack_register_history(h)
+        got = want = None
+        while True:
+            got = wgl.check_prefix(p, got, max_waves=budget, device=card)
+            want = plain(lambda: wgl.check_prefix(
+                p, want, max_waves=budget, device=card))
+            assert (got.done, got.k, got.rungs, got.rung_i, got.peak,
+                    got.waves_run) == (want.done, want.k, want.rungs,
+                                       want.rung_i, want.peak,
+                                       want.waves_run)
+            if got.done:
+                break
+            assert frontier_bytes(got.frontier) == \
+                frontier_bytes(want.frontier)
+        assert strip(got.result) == strip(want.result)
+
+
+@pytest.mark.cuda
+def test_the_kernel_states_its_limits_and_refuses_beyond_them(card):
+    """The route reads the kernel's own limits (capacity 128, 32 info
+    classes, 2 count words); a launch past them raises."""
+    from jepsen_etcd_tpu_torch.ops import _cuda
+    assert _cuda.wgl_rung_limits() == (128, 32, 2)
+    p = fuzz(True, False, seed=3210, n=1)[0]
+    tables = wgl.device_tables(p, card)
+    ni = wgl.info_dims(p)[1]
+    rows, info, cls = wgl._rung_kernel_tables(tables, ni)
+    d, w, i, v, n = wgl._initial_frontier(256, 1, ni, card)
+    fr = torch.cat([d[:, None], w, i, v[:, None]], 1)
+    with pytest.raises(RuntimeError, match="wgl_rung launch failed"):
+        _cuda.wgl_rung(rows, info, cls, fr, n.reshape(1),
+                       torch.empty_like(fr),
+                       torch.empty(5, dtype=torch.int64, device=card),
+                       p.R, 0, p.R + p.I + 1)
