@@ -12,9 +12,11 @@ each (kernel indel_bits), the capacity ladder (kernel wgl_rung for
 rungs of one-word windows up to 128, PyTorch ops on the card above,
 at real size on a 26,992-entry history whose wave-kernel search
 overflows, held against the same rungs as PyTorch ops replayed from
-CUDA graphs and issued one by one, and on two info-op keys the size of
-the benchmark's faulted keys, its info classes included, dict and
-frozen frontier bytes), the spill BFS and
+CUDA graphs and issued one by one, on two info-op keys the size of
+the benchmark's 4n cell's faulted keys and on three keys of its 1-key
+cell at the kernel's limits of info classes and count words, one
+accepted and two refuted, dict and frozen frontier bytes), the spill
+BFS and
 ``check_prefix``, and the keyed register check: the register
 workload's checker, ``Independent(Compose({linear, session}))``, on
 32 keys x 2,000 ops (wgl_wave's batched launch, once on
@@ -166,6 +168,10 @@ LADDER_SEED = 40
 #: 128 -> 256 -> 512, so the rung kernel runs its class candidates on
 #: both and hands the second's frozen frontier to the PyTorch rungs
 INFO_KEY_SEEDS, INFO_KEY_OPS = (20, 21), 1_600
+#: the register_1key_10k.faulted cell's fixed faulted key 0 (13,500 ops,
+#: R 10,759, I 44, info classes padded to 32 in two count words: the
+#: rung kernel's C_CAP and NI_CAP), and where its impossible read goes
+CELL_KEY, CELL_KEY_OPS, CELL_KEY_AT = 0, 13_500, 0.9
 #: the keyed register cell (testing.keyed_register_history): 32 keys of
 #: 2,000 ops, 10 processes a key (the reference's register test with
 #: --ops-per-key 2000, 2n threads a key on 5 nodes). Keys 3, 11, 19 and
@@ -4085,91 +4091,142 @@ def frontier_bytes(frontier) -> tuple:
     return rows.cpu().numpy().tobytes(), int(n)
 
 
-def info_key_holds(card: str, dev) -> None:
-    """The rung kernel with its info classes (count words ni = 1) on
-    info-op keys the size of a faulted key of the benchmark's cell
-    (``INFO_KEY_SEEDS``), against its plain version, the same rungs as
-    PyTorch ops (the kernel's route off, ``RUNG_KERNEL_F_MAX`` 0) on the
-    same tables: ``check_packed`` from rung 32 with the spill deferred,
-    the same dict; and rungs 32 and 128 from the empty frontier, paused
-    halfway and run whole, the same (accepted, overflow, k, peak) and
-    frozen frontier bytes. Prints a wave's time either way."""
+def rung_route_holds(p, what: str, fs: tuple, card: str, dev) -> dict:
+    """The rung kernel on one pack against its plain version, the same
+    rungs as PyTorch ops (the kernel's route off, ``RUNG_KERNEL_F_MAX``
+    0) on the same tables: ``check_packed`` from rung 32 with the spill
+    deferred, the same dict and frozen frontier; and each rung of ``fs``
+    from the empty frontier, paused at k = R/2 and run whole, the same
+    (accepted, overflow, k, peak) and frozen frontier bytes. Prints the
+    kernel's launches and a wave's time either way; returns the
+    kernel's dict."""
     import torch
     from jepsen_etcd_tpu_torch.ops import wgl
-    from jepsen_etcd_tpu_torch.testing import gen_history
+    c_pad, ni, _ = wgl.info_dims(p)
     kernel_max = wgl.RUNG_KERNEL_F_MAX
     routes = (("kernel", kernel_max), ("plain", 0))
     try:
-        for seed in INFO_KEY_SEEDS:
-            p = wgl.pack_register_history(gen_history(
-                random.Random(seed), n_procs=10, n_ops=INFO_KEY_OPS,
-                info_rate=0.01))
-            c_pad, ni, _ = wgl.info_dims(p)
-            if not (p.ok and p.w == 32 and ni == 1 and c_pad):
-                fail(f"info-op key {seed}: not a one-word window with "
-                     f"info classes: w {p.w}, info dims {(c_pad, ni)}")
-            outs, walls, launches = {}, {}, {}
-            for route, f_max in routes:
-                wgl.RUNG_KERNEL_F_MAX = f_max
-                wgl.RUNG_KERNEL_LAUNCHES = 0
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                outs[route] = wgl.check_packed(p, f_max=32, spill=False,
-                                               device=dev)
-                torch.cuda.synchronize()
-                walls[route] = time.perf_counter() - t0
-                launches[route] = wgl.RUNG_KERNEL_LAUNCHES
-            got, want = outs["kernel"], outs["plain"]
-            same_dict = {k: v for k, v in got.items() if k != "_resume"} \
-                == {k: v for k, v in want.items() if k != "_resume"}
-            if "_resume" in got or "_resume" in want:
-                same_dict = same_dict and "_resume" in got and \
-                    "_resume" in want and \
-                    got["_resume"][2] == want["_resume"][2] and \
-                    frontier_bytes(got["_resume"][1]) == \
-                    frontier_bytes(want["_resume"][1])
-            tables = wgl.device_tables(p, dev)
-            lines, same_runs = [], True
-            for f in (32, 128):
-                for k_stop in (p.R // 2, None):
-                    runs = {}
-                    for route, f_max in routes:
-                        wgl.RUNG_KERNEL_F_MAX = f_max
-                        init = (0, *wgl._initial_frontier(f, 1, ni, dev))
-                        torch.cuda.synchronize()
-                        t0 = time.perf_counter()
-                        *head, fr = wgl._wgl_loop(tables, p.R, p.I, f, 32,
-                                                  init, k_stop)
-                        torch.cuda.synchronize()
-                        runs[route] = (tuple(head), frontier_bytes(fr),
-                                       time.perf_counter() - t0)
-                    same = runs["kernel"][:2] == runs["plain"][:2]
-                    same_runs = same_runs and same
-                    acc, ovf, k, peak = runs["kernel"][0]
-                    waves = max(1, k + (1 if ovf else 0))
-                    lines.append(
-                        f"F = {f} to {'the end' if k_stop is None else k_stop}"
-                        f": k {k}, peak {peak}, accepted {acc}, overflow "
-                        f"{ovf}, kernel {runs['kernel'][2] * 1e6 / waves:.2f}"
-                        f" us a wave, plain "
-                        f"{runs['plain'][2] * 1e6 / waves:.2f} us a wave, "
-                        f"same: {same}")
-            print(f"info-op key at the faulted cell's size on {card}: seed "
-                  f"{seed}, R {p.R}, I {p.I}, info dims {(c_pad, ni)}: "
-                  f"check_packed from rung 32 (spill deferred) rungs "
-                  f"{got.get('rungs')}, waves {got.get('waves')}, peak "
-                  f"{got.get('peak-frontier')}, {launches['kernel']} rung "
-                  f"run(s) in the kernel: {walls['kernel'] * 1e3:.1f} ms, "
-                  f"plain {walls['plain'] * 1e3:.1f} ms ({launches['plain']}"
-                  f" in the kernel); same dict and frozen frontier: "
-                  f"{same_dict}; rung runs from the empty frontier: "
-                  + "; ".join(lines), flush=True)
-            if not same_dict or not same_runs or launches["plain"] or \
-                    launches["kernel"] < 1:
-                fail(f"info-op key {seed}: the rung kernel disagrees with "
-                     f"its plain version: {got} against {want}")
+        outs, walls, launches = {}, {}, {}
+        for route, f_max in routes:
+            wgl.RUNG_KERNEL_F_MAX = f_max
+            wgl.RUNG_KERNEL_LAUNCHES = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs[route] = wgl.check_packed(p, f_max=32, spill=False,
+                                           device=dev)
+            torch.cuda.synchronize()
+            walls[route] = time.perf_counter() - t0
+            launches[route] = wgl.RUNG_KERNEL_LAUNCHES
+        got, want = outs["kernel"], outs["plain"]
+        same_dict = {k: v for k, v in got.items() if k != "_resume"} \
+            == {k: v for k, v in want.items() if k != "_resume"}
+        if "_resume" in got or "_resume" in want:
+            same_dict = same_dict and "_resume" in got and \
+                "_resume" in want and \
+                got["_resume"][2] == want["_resume"][2] and \
+                frontier_bytes(got["_resume"][1]) == \
+                frontier_bytes(want["_resume"][1])
+        tables = wgl.device_tables(p, dev)
+        lines, same_runs = [], True
+        for f in fs:
+            for k_stop in (p.R // 2, None):
+                runs = {}
+                for route, f_max in routes:
+                    wgl.RUNG_KERNEL_F_MAX = f_max
+                    init = (0, *wgl._initial_frontier(f, 1, ni, dev))
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    *head, fr = wgl._wgl_loop(tables, p.R, p.I, f, 32,
+                                              init, k_stop)
+                    torch.cuda.synchronize()
+                    runs[route] = (tuple(head), frontier_bytes(fr),
+                                   time.perf_counter() - t0)
+                same = runs["kernel"][:2] == runs["plain"][:2]
+                same_runs = same_runs and same
+                acc, ovf, k, peak = runs["kernel"][0]
+                waves = max(1, k + (1 if ovf else 0))
+                lines.append(
+                    f"F = {f} to {'the end' if k_stop is None else k_stop}"
+                    f": k {k}, peak {peak}, accepted {acc}, overflow "
+                    f"{ovf}, kernel {runs['kernel'][2] * 1e6 / waves:.2f}"
+                    f" us a wave, plain "
+                    f"{runs['plain'][2] * 1e6 / waves:.2f} us a wave, "
+                    f"same: {same}")
     finally:
         wgl.RUNG_KERNEL_F_MAX = kernel_max
+    waves = max(1, got.get("waves", 0))
+    print(f"{what} on {card}: R {p.R}, I {p.I}, info dims {(c_pad, ni)}: "
+          f"check_packed from rung 32 (spill deferred) valid? "
+          f"{got.get('valid?')}, rungs {got.get('rungs')}, waves "
+          f"{got.get('waves')}, peak {got.get('peak-frontier')}, "
+          f"{launches['kernel']} rung run(s) in the kernel: "
+          f"{walls['kernel'] * 1e3:.1f} ms ("
+          f"{walls['kernel'] * 1e6 / waves:.2f} us a wave), plain "
+          f"{walls['plain'] * 1e3:.1f} ms ({walls['plain'] * 1e6 / waves:.2f}"
+          f" us a wave; {launches['plain']} in the kernel); same dict and "
+          f"frozen frontier: {same_dict}; rung runs from the empty "
+          f"frontier: " + "; ".join(lines), flush=True)
+    if not same_dict or not same_runs or launches["plain"] or \
+            launches["kernel"] < 1:
+        fail(f"{what}: the rung kernel disagrees with its plain version "
+             f"or took no rung run: {got} against {want}")
+    return got
+
+
+def info_key_holds(card: str, dev) -> None:
+    """The rung kernel with its info classes (count words ni = 1) on
+    info-op keys the size of a faulted key of the benchmark's 4n cell
+    (``INFO_KEY_SEEDS``), against its plain version at rungs 32 and 128
+    (``rung_route_holds``)."""
+    from jepsen_etcd_tpu_torch.ops import wgl
+    from jepsen_etcd_tpu_torch.testing import gen_history
+    for seed in INFO_KEY_SEEDS:
+        p = wgl.pack_register_history(gen_history(
+            random.Random(seed), n_procs=10, n_ops=INFO_KEY_OPS,
+            info_rate=0.01))
+        c_pad, ni, _ = wgl.info_dims(p)
+        if not (p.ok and p.w == 32 and ni == 1 and c_pad):
+            fail(f"info-op key {seed}: not a one-word window with "
+                 f"info classes: w {p.w}, info dims {(c_pad, ni)}")
+        rung_route_holds(p, f"info-op key at the 4n cell's size, seed "
+                         f"{seed}", (32, 128), card, dev)
+
+
+def cell_key_holds(card: str, dev) -> None:
+    """The rung kernel at its limits, on keys of the
+    ``register_1key_10k.faulted`` cell: its fixed faulted key
+    ``CELL_KEY`` (info classes padded to the kernel's ``C_CAP``, count
+    words at its ``NI_CAP``), which it accepts, and the same key
+    refuted twice, by an impossible read at ``CELL_KEY_AT`` of its
+    entries and misreported as the cell corrupts its keys; each
+    against its plain version at rung 32 (``rung_route_holds``)."""
+    from benchmark.traffic.register_pool import _rng
+    from benchmark.traffic.synth import gen_register_history
+    from jepsen_etcd_tpu_torch.core.history import History
+    from jepsen_etcd_tpu_torch.ops import _cuda, wgl
+    from jepsen_etcd_tpu_torch.testing import impossible_read_at
+    _, c_cap, ni_cap = _cuda.wgl_rung_limits()
+
+    def key(corrupt: bool) -> History:
+        return History(gen_register_history(
+            _rng("fixed", "faulted", CELL_KEY), n_ops=CELL_KEY_OPS,
+            info_rate=0.01, concurrency=10, corrupt=corrupt))
+
+    faulted = key(False)
+    for what, hist, valid in [
+            ("faulted", faulted, True),
+            ("impossible read", impossible_read_at(faulted, CELL_KEY_AT),
+             False),
+            ("corrupted", key(True), False)]:
+        p = wgl.pack_register_history(hist)
+        c_pad, ni, _ = wgl.info_dims(p)
+        if not (p.ok and p.w == 32 and (c_pad, ni) == (c_cap, ni_cap)):
+            fail(f"1-key cell's key, {what}: not at the rung kernel's "
+                 f"limits: w {p.w}, info dims {(c_pad, ni)}")
+        got = rung_route_holds(p, f"1-key cell's key {CELL_KEY}, {what}",
+                               (32,), card, dev)
+        if got.get("valid?") is not valid:
+            fail(f"1-key cell's key, {what}: valid? {got.get('valid?')}")
 
 
 def rung_entry(p, card: str, dev, launches: int, kernel_launches: int,
@@ -4584,6 +4641,7 @@ def main() -> None:
     rung = rung_entry(p, card, dev, rung_launches, kernel_launches,
                       outs["eager"], walls["eager"], walls["CUDA graphs"])
     info_key_holds(card, dev)
+    cell_key_holds(card, dev)
     lchecker = TPULinearizableChecker(cpu_cutoff=None)
     ladder_cases = [
         ("info-op history", gen_history(

@@ -1210,9 +1210,15 @@ class PackStream:
 def ensure_frames(p: Packed) -> None:
     """Materialize the [R, W] / [R, W, W] / [R, I] frame tables on the
     Packed (idempotent). The host reference packer
-    ``wgl_mxu.pack_tables`` reads them."""
+    ``wgl_mxu.pack_tables`` reads them. One ``wgl.frames`` span a build,
+    none where the frames are there already."""
     if p.static_ok is not None or not p.ok or p.R == 0:
         return
+    with telemetry.current().span("wgl.frames", ops=p.R, w=p.w, infos=p.I):
+        _build_frames(p)
+
+
+def _build_frames(p: Packed) -> None:
     R, w, I = p.R, p.w, p.I
     nw = w // 32
     lo = p.lo
@@ -1807,12 +1813,14 @@ def _rung_kernel_loop(tables: dict, R: int, lim: int, k0: int, dvec, wvec,
     """``_wgl_loop``'s rung run in one launch of csrc/wgl_rung.cu, with
     one sync: the same (accepted, overflow, k, peak, frontier), the
     frontier's rows as int64 views of the kernel's output. One
-    ``wgl.rung-kernel`` span and counter a call."""
+    ``wgl.rung-kernel`` span and counter a call; the span carries the
+    waves run, the capacity F, the info classes ``c_pad`` and the count
+    words ``ni``."""
     global RUNG_KERNEL_LAUNCHES
     from . import _cuda
     tel = telemetry.current()
     ni = ivec.shape[1]
-    with tel.span("wgl.rung-kernel"):
+    with tel.span("wgl.rung-kernel") as sp:
         rows, info, cls = _rung_kernel_tables(tables, ni)
         fr = torch.cat([dvec[:, None], wvec, ivec, vvec[:, None]], 1)
         out = torch.empty_like(fr)
@@ -1820,6 +1828,8 @@ def _rung_kernel_loop(tables: dict, R: int, lim: int, k0: int, dvec, wvec,
         _cuda.wgl_rung(rows, info, cls, fr, n_alive.reshape(1), out, res,
                        R, k0, lim)
         accepted, overflow, k, peak, _ = res.tolist()
+        sp.set(waves=k - k0, f_max=fr.shape[0],
+               c_pad=tables["c_size"].shape[-1] if ni else 0, ni=ni)
     with _sharded_lock:
         RUNG_KERNEL_LAUNCHES += 1
     tel.counter("wgl.rung-kernel")

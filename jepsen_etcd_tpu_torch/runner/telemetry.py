@@ -92,6 +92,8 @@ REGISTRY = {
         "fused.check",        # ... and the consumer's check leg
         "wgl.tables",         # ops/wgl.py: a ladder's tables padded and
                               # copied to the card (a key, a lane)
+        "wgl.frames",         # ... ensure_frames: a key's [R, W] frame
+                              # tables built on the host
         "wgl.graph-capture",  # ... a rung run's warm-up wave and its
                               # CUDA-graph capture
         "wgl.graph-replay",   # ... the run's graph replays and syncs

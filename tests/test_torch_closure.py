@@ -221,6 +221,8 @@ def test_routing_constants_equal_reference():
 #: kernel's, which only the port records
 PORT_REGISTRY = ("""        "wgl.tables",         # ops/wgl.py: a ladder's tables padded and
                               # copied to the card (a key, a lane)
+        "wgl.frames",         # ... ensure_frames: a key's [R, W] frame
+                              # tables built on the host
         "wgl.graph-capture",  # ... a rung run's warm-up wave and its
                               # CUDA-graph capture
         "wgl.graph-replay",   # ... the run's graph replays and syncs

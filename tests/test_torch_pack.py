@@ -81,6 +81,23 @@ def test_packed_and_perop_bit_identical(w, corrupt, info_rate):
             assert a.dtype == b.dtype and np.array_equal(a, b)
 
 
+def test_frames_of_a_long_info_key_match_the_reference():
+    """A key of thousands of ops with tens of :info ops (the single-key
+    cell's shape, smaller): its frames, the [R, I, NW] info tables
+    included, equal the reference's."""
+    from benchmark.traffic.synth import gen_register_history
+    ops = gen_register_history(random.Random(3), n_ops=3000,
+                               info_rate=0.05, readers=5, writers=5,
+                               values=5, concurrency=10)
+    h = RefHistory(ops)
+    ref = ref_wgl.pack_register_history(h)
+    got = wgl.pack_register_history(port_history(h))
+    assert ref.ok and ref.I >= 10
+    ref_wgl.ensure_frames(ref)
+    wgl.ensure_frames(got)
+    assert_packed_equal(ref, got)
+
+
 def test_mutex_and_unsupported_packs_match():
     """Adapter packing (mutex) and the refusal reasons match too."""
     from test_wgl import gen_mutex_history

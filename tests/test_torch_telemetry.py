@@ -195,8 +195,9 @@ WALL_CLOCK_COUNTERS = ("generate.ops_per_s",)
 
 #: spans only the port records: inside the ladder, around the split and
 #: around the DFS
-PORT_SPANS = ("wgl.tables", "wgl.graph-capture", "wgl.graph-replay",
-              "wgl.eager", "independent.split", "oracle.dfs")
+PORT_SPANS = ("wgl.tables", "wgl.frames", "wgl.graph-capture",
+              "wgl.graph-replay", "wgl.eager", "independent.split",
+              "oracle.dfs")
 
 
 def shape(out) -> dict:
