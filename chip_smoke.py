@@ -15,8 +15,9 @@ overflows, held against the same rungs as PyTorch ops replayed from
 CUDA graphs and issued one by one, on two info-op keys the size of
 the benchmark's 4n cell's faulted keys and on three keys of its 1-key
 cell at the kernel's limits of info classes and count words, one
-accepted and two refuted, dict and frozen frontier bytes), the spill
-BFS and
+accepted and two refuted, dict and frozen frontier bytes, the rung
+kernel's tables built on the card by kernel wgl_frames identical to
+the host's), the spill BFS and
 ``check_prefix``, and the keyed register check: the register
 workload's checker, ``Independent(Compose({linear, session}))``, on
 32 keys x 2,000 ops (wgl_wave's batched launch, once on
@@ -4091,25 +4092,82 @@ def frontier_bytes(frontier) -> tuple:
     return rows.cpu().numpy().tobytes(), int(n)
 
 
+def card_tables_hold(p, what: str, card: str, dev) -> None:
+    """The rung kernel's tables built on the card (``wgl.card_tables``,
+    csrc/wgl_frames.cu) against their plain version, the host's frames
+    narrowed (``_rung_kernel_tables(device_tables(p))``): all three
+    identical. Prints the card build's wall (inputs, copy, launch and
+    sync; median of 21), its kernel alone (CUDA events) beside the time
+    its writes take at the card's bandwidth, and the host build's wall
+    (its frames built anew each time; median of 3)."""
+    import torch
+    from jepsen_etcd_tpu_torch.ops import _cuda, wgl
+    c_pad, ni, i_tab = wgl.info_dims(p)
+
+    def card_build():
+        out = wgl.card_tables(p, dev)
+        torch.cuda.synchronize()
+        return out
+
+    def host_build():
+        for name in wgl.FRAME_FIELDS:
+            setattr(p, name, None)
+        out = wgl._rung_kernel_tables(wgl.device_tables(p, dev), ni)
+        torch.cuda.synchronize()
+        return out
+
+    def wall_ms(fn, reps: int) -> float:
+        fn()
+        walls = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            walls.append(time.perf_counter() - t0)
+        return statistics.median(walls) * 1e3
+
+    got, want = card_build(), host_build()
+    same = all(g.dtype == w.dtype and g.shape == w.shape
+               and bool(torch.equal(g, w))
+               for g, w in zip((got[n] for n in wgl.RUNG_TABLES), want))
+    card_ms, host_ms = wall_ms(card_build, 21), wall_ms(host_build, 3)
+    inputs = torch.from_numpy(wgl._frame_inputs(p, c_pad, ni)).to(dev)
+    rows = torch.empty_like(got[wgl.RUNG_TABLES[0]])
+    info = torch.empty_like(got[wgl.RUNG_TABLES[1]])
+    kern_ms = cuda_ms(lambda: _cuda.wgl_frames(inputs, p.R, p.I, rows,
+                                               info), 21)
+    nbytes = (rows.numel() + info.numel()) * 4
+    print(f"{what} on {card}: the rung kernel's tables built on the card "
+          f"(r_pad {rows.shape[0]}, i_tab {i_tab}): {card_ms * 1e3:.1f} us "
+          f"a build (inputs, copy, launch, sync), the kernel alone "
+          f"{kern_ms * 1e3:.1f} us ({nbytes} bytes written, "
+          f"{nbytes / HBM_BYTES_PER_S * 1e6:.2f} us at the card's "
+          f"bandwidth); the host build {host_ms:.1f} ms; identical: {same}",
+          flush=True)
+    if not same:
+        fail(f"{what}: the card-built rung-kernel tables differ from the "
+             f"host's")
+
+
 def rung_route_holds(p, what: str, fs: tuple, card: str, dev) -> dict:
     """The rung kernel on one pack against its plain version, the same
     rungs as PyTorch ops (the kernel's route off, ``RUNG_KERNEL_F_MAX``
     0) on the same tables: ``check_packed`` from rung 32 with the spill
-    deferred, the same dict and frozen frontier; and each rung of ``fs``
-    from the empty frontier, paused at k = R/2 and run whole, the same
-    (accepted, overflow, k, peak) and frozen frontier bytes. Prints the
-    kernel's launches and a wave's time either way; returns the
-    kernel's dict."""
+    deferred, the same dict and frozen frontier, its tables built on the
+    card (csrc/wgl_frames.cu) on the kernel's route and on the host on
+    the plain one; and each rung of ``fs`` from the empty frontier,
+    paused at k = R/2 and run whole, the same (accepted, overflow, k,
+    peak) and frozen frontier bytes. Prints the kernel's launches and a
+    wave's time either way; returns the kernel's dict."""
     import torch
     from jepsen_etcd_tpu_torch.ops import wgl
     c_pad, ni, _ = wgl.info_dims(p)
     kernel_max = wgl.RUNG_KERNEL_F_MAX
     routes = (("kernel", kernel_max), ("plain", 0))
     try:
-        outs, walls, launches = {}, {}, {}
+        outs, walls, launches, builds = {}, {}, {}, {}
         for route, f_max in routes:
             wgl.RUNG_KERNEL_F_MAX = f_max
-            wgl.RUNG_KERNEL_LAUNCHES = 0
+            wgl.RUNG_KERNEL_LAUNCHES = wgl.FRAME_BUILDS = 0
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             outs[route] = wgl.check_packed(p, f_max=32, spill=False,
@@ -4117,6 +4175,7 @@ def rung_route_holds(p, what: str, fs: tuple, card: str, dev) -> dict:
             torch.cuda.synchronize()
             walls[route] = time.perf_counter() - t0
             launches[route] = wgl.RUNG_KERNEL_LAUNCHES
+            builds[route] = wgl.FRAME_BUILDS
         got, want = outs["kernel"], outs["plain"]
         same_dict = {k: v for k, v in got.items() if k != "_resume"} \
             == {k: v for k, v in want.items() if k != "_resume"}
@@ -4159,7 +4218,8 @@ def rung_route_holds(p, what: str, fs: tuple, card: str, dev) -> dict:
           f"check_packed from rung 32 (spill deferred) valid? "
           f"{got.get('valid?')}, rungs {got.get('rungs')}, waves "
           f"{got.get('waves')}, peak {got.get('peak-frontier')}, "
-          f"{launches['kernel']} rung run(s) in the kernel: "
+          f"{launches['kernel']} rung run(s) in the kernel on "
+          f"{builds['kernel']} card-built table set(s): "
           f"{walls['kernel'] * 1e3:.1f} ms ("
           f"{walls['kernel'] * 1e6 / waves:.2f} us a wave), plain "
           f"{walls['plain'] * 1e3:.1f} ms ({walls['plain'] * 1e6 / waves:.2f}"
@@ -4167,9 +4227,10 @@ def rung_route_holds(p, what: str, fs: tuple, card: str, dev) -> dict:
           f"frozen frontier: {same_dict}; rung runs from the empty "
           f"frontier: " + "; ".join(lines), flush=True)
     if not same_dict or not same_runs or launches["plain"] or \
-            launches["kernel"] < 1:
-        fail(f"{what}: the rung kernel disagrees with its plain version "
-             f"or took no rung run: {got} against {want}")
+            launches["kernel"] < 1 or builds != {"kernel": 1, "plain": 0}:
+        fail(f"{what}: the rung kernel disagrees with its plain version, "
+             f"took no rung run or did not build its tables on the card: "
+             f"{got} against {want}, card builds {builds}")
     return got
 
 
@@ -4199,7 +4260,8 @@ def cell_key_holds(card: str, dev) -> None:
     words at its ``NI_CAP``), which it accepts, and the same key
     refuted twice, by an impossible read at ``CELL_KEY_AT`` of its
     entries and misreported as the cell corrupts its keys; each
-    against its plain version at rung 32 (``rung_route_holds``)."""
+    against its plain version at rung 32 (``rung_route_holds``), its
+    tables built on the card against the host's (``card_tables_hold``)."""
     from benchmark.traffic.register_pool import _rng
     from benchmark.traffic.synth import gen_register_history
     from jepsen_etcd_tpu_torch.core.history import History
@@ -4223,6 +4285,8 @@ def cell_key_holds(card: str, dev) -> None:
         if not (p.ok and p.w == 32 and (c_pad, ni) == (c_cap, ni_cap)):
             fail(f"1-key cell's key, {what}: not at the rung kernel's "
                  f"limits: w {p.w}, info dims {(c_pad, ni)}")
+        card_tables_hold(p, f"1-key cell's key {CELL_KEY}, {what}", card,
+                         dev)
         got = rung_route_holds(p, f"1-key cell's key {CELL_KEY}, {what}",
                                (32,), card, dev)
         if got.get("valid?") is not valid:
@@ -4302,7 +4366,8 @@ def main() -> None:
     marks.append((1, time.perf_counter()))
     from concurrent.futures import ThreadPoolExecutor
     t0 = time.perf_counter()
-    sources = ["wgl_wave", "indel_bits", "drain_register", "wgl_rung"]
+    sources = ["wgl_wave", "indel_bits", "drain_register", "wgl_rung",
+               "wgl_frames"]
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(_cuda.build, sources))
     print(f"build: {', '.join(s + '.cu' for s in sources)} (in parallel) "

@@ -97,8 +97,10 @@ _DRAIN = {"drain_register_launch": (_I, [_P] * 12 + [_I] * 7 + [_P]),
 _RUNG = {"wgl_rung_launch": (_I, [_P, _P, _I, _P, _I, _I, _P, _P, _P, _P,
                                    _I, _I, _I, _I, _P]),
          "wgl_rung_limit": (_I, [_I])}
+_FRAMES = {"wgl_frames_launch": (_I, [_P, _I, _I, _I, _I, _P, _P, _P])}
 _SIGNATURES = {"wgl_wave": _WGL, "indel_bits": _INDEL,
-               "drain_register": _DRAIN, "wgl_rung": _RUNG}
+               "drain_register": _DRAIN, "wgl_rung": _RUNG,
+               "wgl_frames": _FRAMES}
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -185,6 +187,34 @@ def wgl_rung_limits() -> tuple:
     csrc/wgl_rung.cu launch takes, as the built kernel states them."""
     lib = _lib("wgl_rung")
     return tuple(int(lib.wgl_rung_limit(i)) for i in range(3))
+
+
+def wgl_frames(inputs: torch.Tensor, R: int, I: int, rows: torch.Tensor,
+               info: torch.Tensor) -> None:
+    """Launch csrc/wgl_frames.cu on the current stream: from ``inputs``
+    (int32, a key's per-op vectors as ``wgl._frame_inputs`` lays them
+    out, at least 12 R + 2 I long) -> the rung kernel's rows [r_pad, 196]
+    and info [r_pad, 2 * i_tab] int32 (``wgl._rung_kernel_tables``);
+    info [0, 0] for a key without info classes. All contiguous on one
+    CUDA device. Raises ValueError on anything else."""
+    want = ((inputs, 1), (rows, 2), (info, 2))
+    if any(t.device != inputs.device or t.dtype != torch.int32
+           or not t.is_contiguous() or t.dim() != dim for t, dim in want) \
+            or inputs.device.type != "cuda" or R < 1 \
+            or inputs.shape[0] < 12 * R + 2 * I \
+            or rows.shape[1] != 196 or rows.shape[0] < R \
+            or (info.numel() and (info.shape[0] != rows.shape[0]
+                                  or info.shape[1] < 2 * I
+                                  or info.shape[1] % 2)):
+        raise ValueError("wgl_frames: inputs of the wrong device, type, "
+                         "layout or shape")
+    lib = _lib("wgl_frames")
+    with torch.cuda.device(rows.device):
+        err = lib.wgl_frames_launch(
+            inputs.data_ptr(), R, I, info.shape[1] // 2, rows.shape[0],
+            rows.data_ptr(), info.data_ptr() if info.numel() else None,
+            _stream(rows))
+    _check(lib, "wgl_frames", err)
 
 
 def indel_smem_optin(device: torch.device) -> int:

@@ -16,8 +16,10 @@ Engines, in the order ``check_packed`` tries them: the wave kernel
 (``_expand`` / ``_wgl_loop`` as PyTorch ops on the device, rungs 32 ->
 4096, each rung resuming the frozen frontier of the last; on the card
 the rung kernel csrc/wgl_rung.cu runs a rung of a one-word window up to
-128 in one launch); past the top rung the host-driven spill BFS
-(``_spill_bfs``), which is complete.
+128 in one launch, and where it takes a lone ladder's first rung run,
+csrc/wgl_frames.cu builds its tables on the card, ``card_tables``);
+past the top rung the host-driven spill BFS (``_spill_bfs``), which is
+complete.
 ``check_prefix`` is the ladder paused every few waves (the streaming
 API).
 
@@ -97,6 +99,9 @@ RUNG_TABLES = ("rung_rows", "rung_info", "rung_cls")
 #: rung runs the rung kernel took in this process (of RUNG_LAUNCHES); a
 #: caller may reset it to 0 to count one run
 RUNG_KERNEL_LAUNCHES = 0
+#: lone ladders whose rung-kernel tables csrc/wgl_frames.cu built on the
+#: card in this process (``card_tables``); a caller may reset it to 0
+FRAME_BUILDS = 0
 
 #: waves between host reads of the ladder's loop condition. Waves past
 #: the end are masked no-ops, so any value gives the same result.
@@ -1210,11 +1215,12 @@ class PackStream:
 def ensure_frames(p: Packed) -> None:
     """Materialize the [R, W] / [R, W, W] / [R, I] frame tables on the
     Packed (idempotent). The host reference packer
-    ``wgl_mxu.pack_tables`` reads them. One ``wgl.frames`` span a build,
-    none where the frames are there already."""
+    ``wgl_mxu.pack_tables`` reads them. One ``wgl.frames`` span
+    (``on="host"``) a build, none where the frames are there already."""
     if p.static_ok is not None or not p.ok or p.R == 0:
         return
-    with telemetry.current().span("wgl.frames", ops=p.R, w=p.w, infos=p.I):
+    with telemetry.current().span("wgl.frames", ops=p.R, w=p.w, infos=p.I,
+                                  on="host"):
         _build_frames(p)
 
 
@@ -1757,6 +1763,13 @@ def _wgl_loop(tables: dict, R: int, I: int, f_max: int, w: int, init0,
 
 def _rung_kernel_takes(dev: torch.device, f_max: int, w: int, ni: int,
                        tables: dict) -> bool:
+    """Whether the rung kernel takes a rung run on ``tables``
+    (``_rung_kernel_fits``)."""
+    return _rung_kernel_fits(dev, f_max, w, _c_pad(tables, ni), ni)
+
+
+def _rung_kernel_fits(dev: torch.device, f_max: int, w: int, c_pad: int,
+                      ni: int) -> bool:
     """Whether the rung kernel takes a rung run: on the card, with a
     one-word window and a capacity of at most ``RUNG_KERNEL_F_MAX``,
     within the capacity, info classes and count words the kernel
@@ -1765,8 +1778,18 @@ def _rung_kernel_takes(dev: torch.device, f_max: int, w: int, ni: int,
         return False
     from . import _cuda
     f_cap, c_cap, ni_cap = _cuda.wgl_rung_limits()
-    c_pad = tables["c_size"].shape[-1] if ni else 0
     return f_max <= f_cap and c_pad <= c_cap and ni <= ni_cap
+
+
+def _c_pad(tables: dict, ni: int) -> int:
+    """The info classes a tables dict pads to: the rows of the rung
+    kernel's class table where it is there (a dict built on the card
+    holds no other), else the length of ``c_size``."""
+    if not ni:
+        return 0
+    if RUNG_TABLES[2] in tables:
+        return tables[RUNG_TABLES[2]].shape[-2]
+    return tables["c_size"].shape[-1]
 
 
 def _as_i32(t: torch.Tensor) -> torch.Tensor:
@@ -1808,6 +1831,80 @@ def _rung_kernel_tables(tables: dict, ni: int) -> tuple:
     return tuple(t[name] for name in RUNG_TABLES)
 
 
+def _frame_inputs(p: Packed, c_pad: int, ni: int) -> np.ndarray:
+    """csrc/wgl_frames.cu's input for one pack, as one int32 array (one
+    copy to the card): the per-op vectors op_pred_rank, inv_rank,
+    ret_rank, op_f, op_a1, op_a2, op_ver and op_ceiling, the per-depth
+    lo[:R], shift, u_forced and ceil_beyond, then the info members'
+    invoke ranks and ``last`` (a member's highest rank r with
+    ret_rank[r] below its invoke, -1 for none: its static bit at depth d
+    is last < min(lo[d] + 32, R), as ``_build_frames``' cumulative sum
+    says), then the rung kernel's class table [c_pad, 8 + ni]
+    (``_rung_kernel_tables``' cls; none without info classes). Every
+    value keeps its low 32 bits, as ``_as_i32`` narrows it."""
+    R = p.R
+    ret = np.asarray(p.ret_rank, dtype=np.int64)
+    i_inv = np.asarray(p._i_inv_rank, dtype=np.int64)
+    # ret < i_inv[j] somewhere at or past rank r iff the suffix minimum
+    # of ret at r is below it, and that minimum never falls as r grows
+    suffix_min = np.minimum.accumulate(ret[::-1])[::-1]
+    last = np.searchsorted(suffix_min, i_inv, side="left") - 1
+    cls = np.zeros((c_pad, 8 + ni) if ni else (0, 0), dtype=np.int64)
+    if ni:
+        C = p.C
+        cls[:C, :8] = np.stack([p.c_f, p.c_a1, p.c_a2, p.c_size, p.c_off,
+                                np.clip(p.c_word, 0, ni - 1), p.c_shift,
+                                p.c_mask], -1)
+        cls[np.arange(C), 8 + p.c_word] = \
+            1 << p.c_shift.astype(np.int64)
+    return np.concatenate([np.asarray(a).astype(np.int32) for a in (
+        p.op_pred_rank, p.inv_rank, ret, p.op_f, p.op_a1, p.op_a2,
+        p.op_ver, p.op_ceiling, p.lo[:R], p.shift, p.u_forced,
+        p.ceil_beyond, i_inv, last, cls.ravel())])
+
+
+def card_tables(p: Packed, dev: torch.device) -> dict:
+    """A lone ladder's tables built on the card: the rung kernel's int32
+    tables (``RUNG_TABLES``), which csrc/wgl_frames.cu writes from the
+    pack's per-op vectors, bit for bit their plain version
+    ``_rung_kernel_tables(device_tables(p, dev), ni)``; the class table
+    rides in the same copy. The dict holds nothing else:
+    ``_host_tables`` adds the int64 tables where the ladder leaves the
+    rung kernel. One ``wgl.frames`` span (``on="card"``: the inputs, the
+    copy and the launch) and one ``wgl.frames-card`` counter a build."""
+    global FRAME_BUILDS
+    from . import _cuda
+    c_pad, ni, i_tab = info_dims(p)
+    r_pad = bucket(p.R)
+    cls_shape = (c_pad, 8 + ni) if ni else (0, 0)
+    tel = telemetry.current()
+    with tel.span("wgl.frames", ops=p.R, w=p.w, infos=p.I, on="card"):
+        inputs = torch.from_numpy(_frame_inputs(p, c_pad, ni)).to(dev)
+        i32 = torch.int32
+        rows = torch.empty((r_pad, 196), dtype=i32, device=dev)
+        info = torch.empty((r_pad, 2 * i_tab) if ni else (0, 0), dtype=i32,
+                           device=dev)
+        cls = inputs[inputs.numel() - cls_shape[0] * cls_shape[1]:] \
+            .view(cls_shape)
+        _cuda.wgl_frames(inputs, p.R, p.I, rows, info)
+    with _sharded_lock:
+        FRAME_BUILDS += 1
+    tel.counter("wgl.frames-card")
+    return dict(zip(RUNG_TABLES, (rows, info, cls)))
+
+
+def _host_tables(p: Packed, tables: dict, dev: torch.device) -> None:
+    """Add the ladder's int64 tables (``device_tables``) to ``tables``
+    where they are not there: a dict ``card_tables`` built holds only
+    the rung kernel's, so a ladder that leaves the kernel (a rung run it
+    does not take, the spill, the deferred spill's ``_resume``) has the
+    host build them then, as a ladder begun on the host did at its
+    start."""
+    if "shift" not in tables:
+        with telemetry.current().span("wgl.tables"):
+            tables.update(device_tables(p, dev))
+
+
 def _rung_kernel_loop(tables: dict, R: int, lim: int, k0: int, dvec, wvec,
                       ivec, vvec, n_alive):
     """``_wgl_loop``'s rung run in one launch of csrc/wgl_rung.cu, with
@@ -1828,8 +1925,8 @@ def _rung_kernel_loop(tables: dict, R: int, lim: int, k0: int, dvec, wvec,
         _cuda.wgl_rung(rows, info, cls, fr, n_alive.reshape(1), out, res,
                        R, k0, lim)
         accepted, overflow, k, peak, _ = res.tolist()
-        sp.set(waves=k - k0, f_max=fr.shape[0],
-               c_pad=tables["c_size"].shape[-1] if ni else 0, ni=ni)
+        sp.set(waves=k - k0, f_max=fr.shape[0], c_pad=_c_pad(tables, ni),
+               ni=ni)
     with _sharded_lock:
         RUNG_KERNEL_LAUNCHES += 1
     tel.counter("wgl.rung-kernel")
@@ -1965,9 +2062,13 @@ def _check_packed_impl(p: Packed, f_max: Optional[int] = None,
         if out is not None and not out.get("overflow"):
             return out
     ladder = _ladder(p, f_max)
-    ni = info_dims(p)[1]
+    c_pad, ni, _ = info_dims(p)
     with telemetry.current().span("wgl.tables"):
-        tables = device_tables(p, dev)
+        # where the rung kernel takes the first rung run, its tables are
+        # built on the card from the per-op vectors
+        tables = card_tables(p, dev) \
+            if _rung_kernel_fits(dev, ladder[0], p.w, c_pad, ni) \
+            else device_tables(p, dev)
     # one histogram sample per rung attempt, value = the rung's
     # frontier budget (the guided coverage vector's wave histogram)
     telemetry.current().hist("wgl.rung_waves", ladder[0])
@@ -1981,10 +2082,13 @@ def _check_packed_impl(p: Packed, f_max: Optional[int] = None,
             break
         rungs += 1
         telemetry.current().hist("wgl.rung_waves", f_next)
+        if not _rung_kernel_takes(dev, f_next, p.w, ni, tables):
+            _host_tables(p, tables, dev)
         valid, overflow, k, peak, frontier = _wgl_loop(
             tables, p.R, p.I, f_next, p.w, (k, *_grow(frontier, f_next)))
         peak_all = max(peak_all, peak)
     if overflow:
+        _host_tables(p, tables, dev)
         if not spill:
             return _overflow_result(p, peak_all, rungs,
                                     (tables, frontier, k))

@@ -92,8 +92,9 @@ REGISTRY = {
         "fused.check",        # ... and the consumer's check leg
         "wgl.tables",         # ops/wgl.py: a ladder's tables padded and
                               # copied to the card (a key, a lane)
-        "wgl.frames",         # ... ensure_frames: a key's [R, W] frame
-                              # tables built on the host
+        "wgl.frames",         # ... a key's frame tables built: on the
+                              # host (ensure_frames, on="host") or on
+                              # the card (card_tables, on="card")
         "wgl.graph-capture",  # ... a rung run's warm-up wave and its
                               # CUDA-graph capture
         "wgl.graph-replay",   # ... the run's graph replays and syncs
@@ -188,6 +189,8 @@ REGISTRY = {
                                   # jobs made, each counted on its own
                                   # thread
         "wgl.rung-kernel",        # rung runs csrc/wgl_rung.cu took
+        "wgl.frames-card",        # lone ladders whose rung-kernel tables
+                                  # csrc/wgl_frames.cu built
         "service.pack_s",         # host packing wall per tick (the
                                   # half double-buffering overlaps with
                                   # the previous tick's device wall)

@@ -221,8 +221,9 @@ def test_routing_constants_equal_reference():
 #: kernel's, which only the port records
 PORT_REGISTRY = ("""        "wgl.tables",         # ops/wgl.py: a ladder's tables padded and
                               # copied to the card (a key, a lane)
-        "wgl.frames",         # ... ensure_frames: a key's [R, W] frame
-                              # tables built on the host
+        "wgl.frames",         # ... a key's frame tables built: on the
+                              # host (ensure_frames, on="host") or on
+                              # the card (card_tables, on="card")
         "wgl.graph-capture",  # ... a rung run's warm-up wave and its
                               # CUDA-graph capture
         "wgl.graph-replay",   # ... the run's graph replays and syncs
@@ -237,6 +238,8 @@ PORT_REGISTRY = ("""        "wgl.tables",         # ops/wgl.py: a ladder's table
                                   # jobs made, each counted on its own
                                   # thread
         "wgl.rung-kernel",        # rung runs csrc/wgl_rung.cu took
+        "wgl.frames-card",        # lone ladders whose rung-kernel tables
+                                  # csrc/wgl_frames.cu built
 """)
 
 

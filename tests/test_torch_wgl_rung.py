@@ -10,8 +10,17 @@ faulted key shape (``gen_register_history`` at ``info_rate`` 0.01),
 alone and as a batched group at F = 128; a search that climbs 32 ->
 128 -> 256 and up; a batched rung whose key climbs from 512; and
 ``check_prefix`` at every budget. The kernel has no CPU mode (its numpy
-model is ``tests/test_torch_wgl_rung_model.py``). Runs on a card
-without JAX: ``python -m pytest --noconftest -m cuda
+model is ``tests/test_torch_wgl_rung_model.py``).
+
+The rung kernel's tables built on the card (``wgl.card_tables``,
+csrc/wgl_frames.cu; its numpy model is
+``tests/test_torch_wgl_frames_model.py``) equal the host's frames
+narrowed bit for bit, on the fuzz, the benchmark cells' faulted keys
+and the 1-key cell's key 0 accepted and refuted; a ladder begun on
+them gives the host build's dicts and frozen frontiers, and one that
+leaves the kernel (past rung 128, or at four count words) the same
+dict as before, with the card builds counted. Runs on a card without
+JAX: ``python -m pytest --noconftest -m cuda
 tests/test_torch_wgl_rung.py``.
 """
 
@@ -24,8 +33,9 @@ from benchmark.traffic.register_pool import _rng
 from benchmark.traffic.synth import gen_register_history
 from jepsen_etcd_tpu_torch.core.history import History
 from jepsen_etcd_tpu_torch.ops import wgl
+from jepsen_etcd_tpu_torch.runner import telemetry
 from jepsen_etcd_tpu_torch.testing import concurrent_writes_history, \
-    gen_history
+    gen_history, impossible_read_at
 
 BUDGETS = (1, 7, 64, 10 ** 6)
 
@@ -75,6 +85,24 @@ def faulted_key(j: int):
     ops = gen_register_history(_rng("fixed", "faulted", j), n_ops=2000,
                                info_rate=0.01)
     return wgl.pack_register_history(History(ops))
+
+
+def cell_key(info_rate: float = 0.01, impossible: bool = False):
+    """The 1-key cell's fixed faulted key 0 (13,500 ops), packed; with
+    ``impossible`` its first versioned read past 0.9 of its entries reads
+    a version no write makes."""
+    h = History(gen_register_history(_rng("fixed", "faulted", 0),
+                                     n_ops=13_500, info_rate=info_rate,
+                                     concurrency=10))
+    return wgl.pack_register_history(impossible_read_at(h, 0.9)
+                                     if impossible else h)
+
+
+def drawn(values: int, n_ops: int, info_rate: float, seed: int):
+    """A 10-thread register key of the benchmark's generator, packed."""
+    return wgl.pack_register_history(History(gen_register_history(
+        random.Random(seed), n_ops=n_ops, info_rate=info_rate,
+        values=values, concurrency=10)))
 
 
 def ladder_packs() -> list:
@@ -207,3 +235,125 @@ def test_the_kernel_states_its_limits_and_refuses_beyond_them(card):
                        torch.empty_like(fr),
                        torch.empty(5, dtype=torch.int64, device=card),
                        p.R, 0, p.R + p.I + 1)
+
+
+#: packs whose rung-kernel tables the card builds, by what they hold:
+#: R below 32, info classes padded to 8, 16 and 32 with one and two
+#: count words, none, and the cells' keys
+CARD_PACKS = {
+    "fuzz": lambda: fuzz(True, False, seed=3210) + fuzz(False, True,
+                                                        seed=3201),
+    "drawn": lambda: [drawn(*a) for a in ((5, 40, 0.2, 0), (2, 1600, 0.4, 0),
+                                          (3, 600, 0.3, 1), (5, 300, 0.3, 0),
+                                          (5, 300, 0.0, 3))],
+    "4n cell": lambda: [faulted_key(0), faulted_key(1)],
+    "1-key cell": lambda: [cell_key(), cell_key(impossible=True)],
+}
+
+
+def card_built(fn, tmp_path) -> tuple:
+    """(fn(), the ``on`` of its wgl.frames spans, its wgl.frames-card
+    count)."""
+    path = str(tmp_path / f"tel{len(list(tmp_path.iterdir()))}.jsonl")
+    tel = telemetry.Telemetry(path=path)
+    telemetry.set_current(tel)
+    try:
+        out = fn()
+    finally:
+        telemetry.set_current(None)
+        tel.close()
+    recs = telemetry.load_jsonl(path)[0]
+    on = [r["attrs"]["on"] for r in recs
+          if r.get("kind") == "span" and r["name"] == "wgl.frames"]
+    cards = sum(r["value"] for r in recs if r.get("kind") == "counter"
+                and r["name"] == "wgl.frames-card")
+    return out, on, cards
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", sorted(CARD_PACKS))
+def test_card_tables_equal_the_host_paths(card, which):
+    for p in CARD_PACKS[which]():
+        c_pad, ni, _ = wgl.info_dims(p)
+        assert p.ok and p.w == 32 and ni <= 2
+        got = wgl.card_tables(p, card)
+        want = wgl._rung_kernel_tables(wgl.device_tables(p, card), ni)
+        assert list(got) == list(wgl.RUNG_TABLES)
+        for name, w in zip(wgl.RUNG_TABLES, want):
+            g = got[name]
+            assert g.dtype == w.dtype == torch.int32, name
+            assert g.shape == w.shape and g.is_contiguous(), name
+            assert torch.equal(g, w), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", sorted(CARD_PACKS))
+def test_a_ladder_on_card_built_tables_equals_the_host_builds(card, plain,
+                                                              monkeypatch,
+                                                              which,
+                                                              tmp_path):
+    """The rung kernel on the card's tables and on the host's, paused
+    halfway and run to the end: the same frozen frontier bytes; and
+    ``check_packed`` the same dict as the host build (the kernel's
+    route off), one card build a key."""
+    monkeypatch.setattr(wgl, "FRAME_BUILDS", 0)
+    packs = CARD_PACKS[which]()
+    for p in packs:
+        ni = wgl.info_dims(p)[1]
+        for k_stop in (p.R // 2, None):
+            runs = []
+            for tables in (wgl.card_tables(p, card),
+                           wgl.device_tables(p, card)):
+                init = (0, *wgl._initial_frontier(32, 1, ni, card))
+                *head, fr = wgl._wgl_loop(tables, p.R, p.I, 32, 32, init,
+                                          k_stop)
+                runs.append((head, frontier_bytes(fr)))
+            assert runs[0] == runs[1]
+        if which == "1-key cell":
+            continue          # ~10,700 plain waves a key: chip_smoke.py
+        got, on, cards = card_built(
+            lambda: wgl.check_packed(p, f_max=32, spill=False, device=card),
+            tmp_path)
+        want, _, want_cards = card_built(lambda: plain(
+            lambda: wgl.check_packed(p, f_max=32, spill=False,
+                                     device=card)), tmp_path)
+        assert strip(got) == strip(want)
+        assert (on, cards, want_cards) == (["card"], 1, 0)
+    assert wgl.FRAME_BUILDS == 2 * len(packs) + (
+        0 if which == "1-key cell" else len(packs))
+
+
+@pytest.mark.cuda
+def test_a_key_that_leaves_the_kernel_gives_the_hosts_dict(card, plain,
+                                                           tmp_path):
+    """Past rung 128 the plain rungs read the host's tables, built then;
+    past the top rung the deferred spill hands them back with the same
+    frozen frontier; a 3 % :info key packs to four count words, past the
+    kernel, and builds on the host from the start."""
+    p = ladder_packs()[20]
+    got, on, cards = card_built(
+        lambda: wgl.check_packed(p, f_max=32, device=card), tmp_path)
+    assert got == plain(lambda: wgl.check_packed(p, f_max=32, device=card))
+    assert got["rungs"] >= 3 and (on, cards) == (["card", "host"], 1)
+    q = wgl.pack_register_history(concurrent_writes_history(16,
+                                                            read_val=1))
+    got, on, cards = card_built(
+        lambda: wgl.check_packed(q, f_max=32, spill=False, device=card),
+        tmp_path)
+    want = plain(lambda: wgl.check_packed(q, f_max=32, spill=False,
+                                          device=card))
+    assert strip(got) == strip(want) and got["overflow"] and cards == 1
+    assert got["_resume"][2] == want["_resume"][2]
+    assert frontier_bytes(got["_resume"][1]) == \
+        frontier_bytes(want["_resume"][1])
+    assert wgl.spill_packed(q, *got["_resume"]) == \
+        wgl.spill_packed(q, *want["_resume"])
+    r = cell_key(info_rate=0.03)
+    assert wgl.info_dims(r)[1] == 4
+    got, on, cards = card_built(
+        lambda: wgl.check_packed(r, f_max=32, spill=False, device=card),
+        tmp_path)
+    assert (on, cards) == (["host"], 0)
+    want = plain(lambda: wgl.check_packed(r, f_max=32, spill=False,
+                                          device=card))
+    assert strip(got) == strip(want)
