@@ -4063,7 +4063,7 @@ def ladder_rungs(p, dev) -> tuple:
     t0 = time.perf_counter()
     ladder = wgl._ladder(p, wgl.LADDER[0])
     ni = wgl.info_dims(p)[1]
-    tables = wgl.device_tables(p, dev)
+    tables = wgl.LadderTables(p, dev)
     k, frontier = 0, wgl._initial_frontier(ladder[0], p.w // 32, ni, dev)
     per_rung = []
     peak_all = 1
@@ -4090,6 +4090,19 @@ def frontier_bytes(frontier) -> tuple:
     d, w, i, v, n = frontier
     rows = torch.cat([d[:, None], w, i, v[:, None]], 1)
     return rows.cpu().numpy().tobytes(), int(n)
+
+
+def card_builds(fn) -> tuple:
+    """(fn(), the ``wgl.frames-card`` builds it counted), this thread
+    recording into a telemetry recorder of its own meanwhile."""
+    from jepsen_etcd_tpu_torch.runner import telemetry
+    tel = telemetry.Telemetry()
+    telemetry.set_thread_current(tel)
+    try:
+        out = fn()
+    finally:
+        telemetry.set_thread_current(None)
+    return out, tel.summary()["counters"].get("wgl.frames-card", 0)
 
 
 def card_tables_hold(p, what: str, card: str, dev) -> None:
@@ -4127,12 +4140,11 @@ def card_tables_hold(p, what: str, card: str, dev) -> None:
 
     got, want = card_build(), host_build()
     same = all(g.dtype == w.dtype and g.shape == w.shape
-               and bool(torch.equal(g, w))
-               for g, w in zip((got[n] for n in wgl.RUNG_TABLES), want))
+               and bool(torch.equal(g, w)) for g, w in zip(got, want))
     card_ms, host_ms = wall_ms(card_build, 21), wall_ms(host_build, 3)
     inputs = torch.from_numpy(wgl._frame_inputs(p, c_pad, ni)).to(dev)
-    rows = torch.empty_like(got[wgl.RUNG_TABLES[0]])
-    info = torch.empty_like(got[wgl.RUNG_TABLES[1]])
+    rows = torch.empty_like(got[0])
+    info = torch.empty_like(got[1])
     kern_ms = cuda_ms(lambda: _cuda.wgl_frames(inputs, p.R, p.I, rows,
                                                info), 21)
     nbytes = (rows.numel() + info.numel()) * 4
@@ -4167,15 +4179,15 @@ def rung_route_holds(p, what: str, fs: tuple, card: str, dev) -> dict:
         outs, walls, launches, builds = {}, {}, {}, {}
         for route, f_max in routes:
             wgl.RUNG_KERNEL_F_MAX = f_max
-            wgl.RUNG_KERNEL_LAUNCHES = wgl.FRAME_BUILDS = 0
+            wgl.RUNG_KERNEL_LAUNCHES = 0
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            outs[route] = wgl.check_packed(p, f_max=32, spill=False,
-                                           device=dev)
+            outs[route], builds[route] = card_builds(
+                lambda: wgl.check_packed(p, f_max=32, spill=False,
+                                         device=dev))
             torch.cuda.synchronize()
             walls[route] = time.perf_counter() - t0
             launches[route] = wgl.RUNG_KERNEL_LAUNCHES
-            builds[route] = wgl.FRAME_BUILDS
         got, want = outs["kernel"], outs["plain"]
         same_dict = {k: v for k, v in got.items() if k != "_resume"} \
             == {k: v for k, v in want.items() if k != "_resume"}
@@ -4185,7 +4197,9 @@ def rung_route_holds(p, what: str, fs: tuple, card: str, dev) -> dict:
                 got["_resume"][2] == want["_resume"][2] and \
                 frontier_bytes(got["_resume"][1]) == \
                 frontier_bytes(want["_resume"][1])
-        tables = wgl.device_tables(p, dev)
+        tables = wgl.LadderTables(p, dev)
+        # both views built before the timed runs
+        _ = tables.rung, tables.plain
         lines, same_runs = [], True
         for f in fs:
             for k_stop in (p.R // 2, None):
@@ -4261,7 +4275,9 @@ def cell_key_holds(card: str, dev) -> None:
     refuted twice, by an impossible read at ``CELL_KEY_AT`` of its
     entries and misreported as the cell corrupts its keys; each
     against its plain version at rung 32 (``rung_route_holds``), its
-    tables built on the card against the host's (``card_tables_hold``)."""
+    tables built on the card against the host's (``card_tables_hold``);
+    and two copies of the faulted key as a batched group
+    (``batched_card_hold``)."""
     from benchmark.traffic.register_pool import _rng
     from benchmark.traffic.synth import gen_register_history
     from jepsen_etcd_tpu_torch.core.history import History
@@ -4291,6 +4307,43 @@ def cell_key_holds(card: str, dev) -> None:
                                (32,), card, dev)
         if got.get("valid?") is not valid:
             fail(f"1-key cell's key, {what}: valid? {got.get('valid?')}")
+        if what == "faulted":
+            batched_card_hold(p, f"1-key cell's key {CELL_KEY}", card, dev)
+
+
+def batched_card_hold(p, what: str, card: str, dev) -> None:
+    """Two copies of one key as a batched group (``check_packed_batch``,
+    the rung at 128): on the card's route each key's tables are built
+    there, two ``wgl.frames-card`` builds, and its rung run is the rung
+    kernel's; the same dicts as the plain route (``RUNG_KERNEL_F_MAX``
+    0: the group's stacked host tables, the rung as PyTorch ops).
+    Prints both walls."""
+    import torch
+    from jepsen_etcd_tpu_torch.ops import wgl
+    kernel_max = wgl.RUNG_KERNEL_F_MAX
+    outs, builds, walls = {}, {}, {}
+    try:
+        for route, f_max in (("kernel", kernel_max), ("plain", 0)):
+            wgl.RUNG_KERNEL_F_MAX = f_max
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got, builds[route] = card_builds(lambda: wgl.check_packed_batch(
+                [p, p], try_fused=False, device=dev))
+            torch.cuda.synchronize()
+            walls[route] = time.perf_counter() - t0
+            outs[route] = [{k: v for k, v in o.items() if k != "_resume"}
+                           for o in got]
+    finally:
+        wgl.RUNG_KERNEL_F_MAX = kernel_max
+    same = outs["kernel"] == outs["plain"]
+    print(f"{what} on {card}, two copies as a batched group: "
+          f"{outs['kernel']}; card builds {builds}; kernel's route "
+          f"{walls['kernel'] * 1e3:.1f} ms, plain "
+          f"{walls['plain'] * 1e3:.1f} ms; same dicts: {same}", flush=True)
+    if not same or builds != {"kernel": 2, "plain": 0} or \
+            not all(o.get("batched") for o in outs["kernel"]):
+        fail(f"{what}, batched: the card's route {outs['kernel']} "
+             f"against the plain {outs['plain']}, card builds {builds}")
 
 
 def rung_entry(p, card: str, dev, launches: int, kernel_launches: int,

@@ -16,10 +16,9 @@ Engines, in the order ``check_packed`` tries them: the wave kernel
 (``_expand`` / ``_wgl_loop`` as PyTorch ops on the device, rungs 32 ->
 4096, each rung resuming the frozen frontier of the last; on the card
 the rung kernel csrc/wgl_rung.cu runs a rung of a one-word window up to
-128 in one launch, and where it takes a lone ladder's first rung run,
-csrc/wgl_frames.cu builds its tables on the card, ``card_tables``);
-past the top rung the host-driven spill BFS (``_spill_bfs``), which is
-complete.
+128 in one launch, on tables csrc/wgl_frames.cu builds on the card,
+``card_tables``; a key's tables are one ``LadderTables``); past the
+top rung the host-driven spill BFS (``_spill_bfs``), which is complete.
 ``check_prefix`` is the ladder paused every few waves (the streaming
 API).
 
@@ -93,15 +92,11 @@ RUNG_LAUNCHES = 0
 #: (``_cuda.wgl_rung_limits``): its whole wave loop in one launch. Other
 #: rung runs are PyTorch ops, graphed below; 0 sends every one there.
 RUNG_KERNEL_F_MAX = 128
-#: the rung kernel's int32 tables, kept in a ladder's tables dict beside
-#: the int64 tables they narrow (``_rung_kernel_tables``)
-RUNG_TABLES = ("rung_rows", "rung_info", "rung_cls")
 #: rung runs the rung kernel took in this process (of RUNG_LAUNCHES); a
 #: caller may reset it to 0 to count one run
 RUNG_KERNEL_LAUNCHES = 0
-#: lone ladders whose rung-kernel tables csrc/wgl_frames.cu built on the
-#: card in this process (``card_tables``); a caller may reset it to 0
-FRAME_BUILDS = 0
+#: the batched rung's capacity where the caller names none
+BATCHED_F = 128
 
 #: waves between host reads of the ladder's loop condition. Waves past
 #: the end are masked no-ops, so any value gives the same result.
@@ -1687,8 +1682,8 @@ def _grow(frontier, f_next: int):
             n_alive)
 
 
-def _wgl_loop(tables: dict, R: int, I: int, f_max: int, w: int, init0,
-              k_stop: Optional[int] = None):
+def _wgl_loop(tables: LadderTables, R: int, I: int, f_max: int, w: int,
+              init0, k_stop: Optional[int] = None):
     """The wave loop at one rung, resumed from ``init0 = (k0, dvec,
     wvec, ivec, vvec, n_alive)``: expand until accepted, a dead
     frontier, overflow (the pre-expansion frontier is frozen for the
@@ -1696,15 +1691,16 @@ def _wgl_loop(tables: dict, R: int, I: int, f_max: int, w: int, init0,
     None keeps the R + I + 1 exhaustion bound).
 
     On the card the rung kernel takes the run where it can
-    (``_rung_kernel_takes``: one launch, ``_rung_kernel_loop``).
-    Otherwise every carry is masked by ``active`` (the reference's
-    vmap-safety guard), so waves run past the end are no-ops: the host
-    reads the loop condition only every ``SYNC_EVERY`` waves, and on the
-    card a long run replays batches of waves from a CUDA graph
-    (``_graph_waves``). Returns (accepted, overflow, k, peak, frontier)
-    with the first four as Python values and the frontier's tensors on
-    the device. One ``wgl.eager`` span a call that the kernel does not
-    take, around the eager waves and their syncs, however many run."""
+    (``_rung_kernel_fits``: one launch on ``tables.rung``,
+    ``_rung_kernel_loop``). Otherwise, on ``tables.plain``, every carry
+    is masked by ``active`` (the reference's vmap-safety guard), so
+    waves run past the end are no-ops: the host reads the loop
+    condition only every ``SYNC_EVERY`` waves, and on the card a long
+    run replays batches of waves from a CUDA graph (``_graph_waves``).
+    Returns (accepted, overflow, k, peak, frontier) with the first four
+    as Python values and the frontier's tensors on the device. One
+    ``wgl.eager`` span a call that the kernel does not take, around the
+    eager waves and their syncs, however many run."""
     global RUNG_LAUNCHES
     k0, dvec, wvec, ivec, vvec, n_alive = init0
     dev = dvec.device
@@ -1714,9 +1710,11 @@ def _wgl_loop(tables: dict, R: int, I: int, f_max: int, w: int, init0,
     lim = (R + I + 1) if k_stop is None else min(k_stop, R + I + 1)
     i64 = torch.int64
     n_alive = torch.as_tensor(n_alive, dtype=i64, device=dev)
-    if _rung_kernel_takes(dev, f_max, w, ivec.shape[1], tables):
+    c_pad, ni, _ = tables.info
+    if _rung_kernel_fits(dev, f_max, w, c_pad, ni):
         return _rung_kernel_loop(tables, R, lim, k0, dvec, wvec, ivec, vvec,
                                  n_alive)
+    plain = tables.plain
     # carry: k, dvec, wvec, ivec, vvec, n_alive, peak, overflow, accepted
     carry = [torch.tensor(k0, dtype=i64, device=dev), dvec, wvec, ivec,
              vvec, n_alive, n_alive.clone(),
@@ -1731,7 +1729,7 @@ def _wgl_loop(tables: dict, R: int, I: int, f_max: int, w: int, init0,
         k, dvec, wvec, ivec, vvec, n_alive, peak, overflow, accepted = c
         active = running(c)
         out_d, out_w, out_i, out_v, n_new, acc_now = _expand(
-            dvec, wvec, ivec, vvec, tables, R, I, w, f_max)
+            dvec, wvec, ivec, vvec, plain, R, I, w, f_max)
         ovf_now = (n_new > f_max) & (~acc_now)
         advance = active & (~ovf_now)
         return [torch.where(advance, k + 1, k),
@@ -1761,13 +1759,6 @@ def _wgl_loop(tables: dict, R: int, I: int, f_max: int, w: int, init0,
             (dvec, wvec, ivec, vvec, n_alive))
 
 
-def _rung_kernel_takes(dev: torch.device, f_max: int, w: int, ni: int,
-                       tables: dict) -> bool:
-    """Whether the rung kernel takes a rung run on ``tables``
-    (``_rung_kernel_fits``)."""
-    return _rung_kernel_fits(dev, f_max, w, _c_pad(tables, ni), ni)
-
-
 def _rung_kernel_fits(dev: torch.device, f_max: int, w: int, c_pad: int,
                       ni: int) -> bool:
     """Whether the rung kernel takes a rung run: on the card, with a
@@ -1781,54 +1772,37 @@ def _rung_kernel_fits(dev: torch.device, f_max: int, w: int, c_pad: int,
     return f_max <= f_cap and c_pad <= c_cap and ni <= ni_cap
 
 
-def _c_pad(tables: dict, ni: int) -> int:
-    """The info classes a tables dict pads to: the rows of the rung
-    kernel's class table where it is there (a dict built on the card
-    holds no other), else the length of ``c_size``."""
-    if not ni:
-        return 0
-    if RUNG_TABLES[2] in tables:
-        return tables[RUNG_TABLES[2]].shape[-2]
-    return tables["c_size"].shape[-1]
-
-
 def _as_i32(t: torch.Tensor) -> torch.Tensor:
     """int64 values of 32 bits, signed or unsigned, as their int32
     bits."""
     return torch.where(t >= 2 ** 31, t - 2 ** 32, t).to(torch.int32)
 
 
-def _rung_kernel_tables(tables: dict, ni: int) -> tuple:
-    """The ladder's int64 tables narrowed to the rung kernel's int32
-    ones: (rows [r_pad, 196]: a depth's fsk (static_ok ? 1 + f_code :
-    0), a1, a2, ver, pred word and ceiling for each of the 32 window
-    ops, then shift, u_forced, ceil_beyond and the update-mask word;
-    info [r_pad, 2 * i_tab]: the members' pred words, then their
-    static_ok; cls [c_pad, 8 + ni]: f, a1, a2, size, first member, count
-    word (clamped to the ni words), shift, mask, increment words). Made
-    once a tables dict and kept in it under ``RUNG_TABLES``; a group's
-    stacked tables (a leading key axis) narrow the same way, once a
-    lane, and each key's dict slices them."""
-    t = tables
-    if RUNG_TABLES[0] not in t:
-        fsk = torch.where(t["static_ok"], t["f_code"] + 1, 0)
-        rows = torch.cat([fsk, t["a1"], t["a2"], t["ver"],
-                          t["pred_frame"][..., 0], t["ceil_frame"],
-                          t["shift"][..., None], t["u_forced"][..., None],
-                          t["ceil_beyond"][..., None], t["upd_mask"]], -1)
-        if ni:
-            info = torch.cat([t["ipred_frame"][..., 0],
-                              t["i_static_ok"].to(torch.int64)], -1)
-            cls = torch.cat([torch.stack([t["c_f"], t["c_a1"], t["c_a2"],
-                                          t["c_size"], t["c_off"],
-                                          t["c_word"].clamp(0, ni - 1),
-                                          t["c_shift"], t["c_mask"]], -1),
-                             t["c_inc"]], -1)
-        else:
-            info = cls = fsk.new_zeros(fsk.shape[:-2] + (0, 0))
-        t.update(zip(RUNG_TABLES, (_as_i32(x).contiguous()
-                                   for x in (rows, info, cls))))
-    return tuple(t[name] for name in RUNG_TABLES)
+def _rung_kernel_tables(t: Mapping, ni: int) -> tuple:
+    """The plain version of ``card_tables``: a ladder's int64 tables
+    (``device_tables``) narrowed to the rung kernel's int32 ones, (rows
+    [r_pad, 196]: a depth's fsk (static_ok ? 1 + f_code : 0), a1, a2,
+    ver, pred word and ceiling for each of the 32 window ops, then
+    shift, u_forced, ceil_beyond and the update-mask word; info [r_pad,
+    2 * i_tab]: the members' pred words, then their static_ok; cls
+    [c_pad, 8 + ni]: f, a1, a2, size, first member, count word (clamped
+    to the ni words), shift, mask, increment words)."""
+    fsk = torch.where(t["static_ok"], t["f_code"] + 1, 0)
+    rows = torch.cat([fsk, t["a1"], t["a2"], t["ver"],
+                      t["pred_frame"][..., 0], t["ceil_frame"],
+                      t["shift"][..., None], t["u_forced"][..., None],
+                      t["ceil_beyond"][..., None], t["upd_mask"]], -1)
+    if ni:
+        info = torch.cat([t["ipred_frame"][..., 0],
+                          t["i_static_ok"].to(torch.int64)], -1)
+        cls = torch.cat([torch.stack([t["c_f"], t["c_a1"], t["c_a2"],
+                                      t["c_size"], t["c_off"],
+                                      t["c_word"].clamp(0, ni - 1),
+                                      t["c_shift"], t["c_mask"]], -1),
+                         t["c_inc"]], -1)
+    else:
+        info = cls = fsk.new_zeros((0, 0))
+    return tuple(_as_i32(x).contiguous() for x in (rows, info, cls))
 
 
 def _frame_inputs(p: Packed, c_pad: int, ni: int) -> np.ndarray:
@@ -1863,16 +1837,14 @@ def _frame_inputs(p: Packed, c_pad: int, ni: int) -> np.ndarray:
         p.ceil_beyond, i_inv, last, cls.ravel())])
 
 
-def card_tables(p: Packed, dev: torch.device) -> dict:
-    """A lone ladder's tables built on the card: the rung kernel's int32
-    tables (``RUNG_TABLES``), which csrc/wgl_frames.cu writes from the
-    pack's per-op vectors, bit for bit their plain version
+def card_tables(p: Packed, dev: torch.device) -> tuple:
+    """A ladder's rung-kernel tables (rows, info, cls) built on the
+    card: csrc/wgl_frames.cu writes the int32 rows and info tables from
+    the pack's per-op vectors, bit for bit their plain version
     ``_rung_kernel_tables(device_tables(p, dev), ni)``; the class table
-    rides in the same copy. The dict holds nothing else:
-    ``_host_tables`` adds the int64 tables where the ladder leaves the
-    rung kernel. One ``wgl.frames`` span (``on="card"``: the inputs, the
-    copy and the launch) and one ``wgl.frames-card`` counter a build."""
-    global FRAME_BUILDS
+    rides in the same copy. One ``wgl.frames`` span (``on="card"``: the
+    inputs, the copy and the launch) and one ``wgl.frames-card`` counter
+    a build."""
     from . import _cuda
     c_pad, ni, i_tab = info_dims(p)
     r_pad = bucket(p.R)
@@ -1887,45 +1859,69 @@ def card_tables(p: Packed, dev: torch.device) -> dict:
         cls = inputs[inputs.numel() - cls_shape[0] * cls_shape[1]:] \
             .view(cls_shape)
         _cuda.wgl_frames(inputs, p.R, p.I, rows, info)
-    with _sharded_lock:
-        FRAME_BUILDS += 1
     tel.counter("wgl.frames-card")
-    return dict(zip(RUNG_TABLES, (rows, info, cls)))
+    return rows, info, cls
 
 
-def _host_tables(p: Packed, tables: dict, dev: torch.device) -> None:
-    """Add the ladder's int64 tables (``device_tables``) to ``tables``
-    where they are not there: a dict ``card_tables`` built holds only
-    the rung kernel's, so a ladder that leaves the kernel (a rung run it
-    does not take, the spill, the deferred spill's ``_resume``) has the
-    host build them then, as a ladder begun on the host did at its
-    start."""
-    if "shift" not in tables:
-        with telemetry.current().span("wgl.tables"):
-            tables.update(device_tables(p, dev))
+class LadderTables(Mapping):
+    """A key's ladder tables on one device, two views each built once,
+    on first use, in a ``wgl.tables`` span: ``rung``, the rung kernel's
+    int32 (rows, info, cls) from the card (``card_tables``), and
+    ``plain``, the int64 and bool tables ``_expand`` reads through the
+    object as a mapping (``device_tables``, or a batched group's slice
+    of its stacked tables). ``info`` is ``info_dims(p)``."""
+
+    __slots__ = ("p", "dev", "info", "_rung", "_plain")
+
+    def __init__(self, p: Packed, dev: torch.device, plain: dict = None):
+        self.p, self.dev, self.info = p, dev, info_dims(p)
+        self._rung, self._plain = None, plain
+
+    @property
+    def rung(self) -> tuple:
+        if self._rung is None:
+            with telemetry.current().span("wgl.tables"):
+                self._rung = card_tables(self.p, self.dev)
+        return self._rung
+
+    @property
+    def plain(self) -> dict:
+        if self._plain is None:
+            with telemetry.current().span("wgl.tables"):
+                self._plain = device_tables(self.p, self.dev)
+        return self._plain
+
+    def __getitem__(self, name):
+        return self.plain[name]
+
+    def __iter__(self):
+        return iter(self.plain)
+
+    def __len__(self):
+        return len(self.plain)
 
 
-def _rung_kernel_loop(tables: dict, R: int, lim: int, k0: int, dvec, wvec,
-                      ivec, vvec, n_alive):
-    """``_wgl_loop``'s rung run in one launch of csrc/wgl_rung.cu, with
-    one sync: the same (accepted, overflow, k, peak, frontier), the
-    frontier's rows as int64 views of the kernel's output. One
-    ``wgl.rung-kernel`` span and counter a call; the span carries the
-    waves run, the capacity F, the info classes ``c_pad`` and the count
-    words ``ni``."""
+def _rung_kernel_loop(tables: LadderTables, R: int, lim: int, k0: int,
+                      dvec, wvec, ivec, vvec, n_alive):
+    """``_wgl_loop``'s rung run in one launch of csrc/wgl_rung.cu on
+    ``tables.rung``, with one sync: the same (accepted, overflow, k,
+    peak, frontier), the frontier's rows as int64 views of the kernel's
+    output. One ``wgl.rung-kernel`` span and counter a call; the span
+    carries the waves run, the capacity F, the info classes ``c_pad``
+    and the count words ``ni``."""
     global RUNG_KERNEL_LAUNCHES
     from . import _cuda
     tel = telemetry.current()
+    rows, info, cls = tables.rung
     ni = ivec.shape[1]
     with tel.span("wgl.rung-kernel") as sp:
-        rows, info, cls = _rung_kernel_tables(tables, ni)
         fr = torch.cat([dvec[:, None], wvec, ivec, vvec[:, None]], 1)
         out = torch.empty_like(fr)
         res = torch.empty(5, dtype=torch.int64, device=fr.device)
         _cuda.wgl_rung(rows, info, cls, fr, n_alive.reshape(1), out, res,
                        R, k0, lim)
         accepted, overflow, k, peak, _ = res.tolist()
-        sp.set(waves=k - k0, f_max=fr.shape[0], c_pad=_c_pad(tables, ni),
+        sp.set(waves=k - k0, f_max=fr.shape[0], c_pad=tables.info[0],
                ni=ni)
     with _sharded_lock:
         RUNG_KERNEL_LAUNCHES += 1
@@ -2062,19 +2058,13 @@ def _check_packed_impl(p: Packed, f_max: Optional[int] = None,
         if out is not None and not out.get("overflow"):
             return out
     ladder = _ladder(p, f_max)
-    c_pad, ni, _ = info_dims(p)
-    with telemetry.current().span("wgl.tables"):
-        # where the rung kernel takes the first rung run, its tables are
-        # built on the card from the per-op vectors
-        tables = card_tables(p, dev) \
-            if _rung_kernel_fits(dev, ladder[0], p.w, c_pad, ni) \
-            else device_tables(p, dev)
+    tables = LadderTables(p, dev)
     # one histogram sample per rung attempt, value = the rung's
     # frontier budget (the guided coverage vector's wave histogram)
     telemetry.current().hist("wgl.rung_waves", ladder[0])
     valid, overflow, k, peak, frontier = _wgl_loop(
         tables, p.R, p.I, ladder[0], p.w,
-        (0, *_initial_frontier(ladder[0], p.w // 32, ni, dev)))
+        (0, *_initial_frontier(ladder[0], p.w // 32, tables.info[1], dev)))
     peak_all = max(1, peak)
     rungs = 1
     for f_next in ladder[1:]:
@@ -2082,13 +2072,10 @@ def _check_packed_impl(p: Packed, f_max: Optional[int] = None,
             break
         rungs += 1
         telemetry.current().hist("wgl.rung_waves", f_next)
-        if not _rung_kernel_takes(dev, f_next, p.w, ni, tables):
-            _host_tables(p, tables, dev)
         valid, overflow, k, peak, frontier = _wgl_loop(
             tables, p.R, p.I, f_next, p.w, (k, *_grow(frontier, f_next)))
         peak_all = max(peak_all, peak)
     if overflow:
-        _host_tables(p, tables, dev)
         if not spill:
             return _overflow_result(p, peak_all, rungs,
                                     (tables, frontier, k))
@@ -2167,6 +2154,13 @@ def prepare_bucket_group(packs: list, idxs: list, r_pad: int,
         Is[j] = packs[i].I
     return PreparedGroup((r_pad, info, packs[idxs[0]].w), K, lanes,
                          k_pad, stacked, Rs, Is)
+
+
+def _group_on_card(key: tuple, lanes: list, f_max: int = BATCHED_F) -> bool:
+    """Whether the rung kernel takes a ``group_key`` group's batched
+    rung at ``f_max`` on each of ``lanes``: no host tables wanted."""
+    _, (c_pad, ni, _), w = key
+    return all(_rung_kernel_fits(d, f_max, w, c_pad, ni) for d in lanes)
 
 
 def _b1_first(device) -> bool:
@@ -2261,7 +2255,7 @@ def _check_bucket_group(packs: list, results: list, idxs: list,
             spill=False, device=device)
         return
     if f_max is None:
-        f_max = 128
+        f_max = BATCHED_F
     if shard and device is None:
         from . import wgl_mxu
         lanes = wgl_mxu.batch_lanes()
@@ -2269,12 +2263,16 @@ def _check_bucket_group(packs: list, results: list, idxs: list,
         lanes = [resolve_device(device)]
     K = len(idxs)
     tel = telemetry.current()
-    if prepared is None or not prepared.fits(packs, idxs,
-                                             (r_pad, info, w), len(lanes)):
+    on_card = _group_on_card((r_pad, info, w), lanes, f_max)
+    if not on_card and (prepared is None or not prepared.fits(
+            packs, idxs, (r_pad, info, w), len(lanes))):
         with tel.span("wgl.tables"):
             prepared = prepare_bucket_group(packs, idxs, r_pad, info,
                                             lanes=len(lanes))
-    per = prepared.k_pad // len(lanes)
+    # keys a lane: a power of two, as prepare_bucket_group pads them
+    per = 1
+    while per * len(lanes) < K:
+        per *= 2
     for _ in idxs:
         # every key in the group attempts the batched rung
         tel.hist("wgl.rung_waves", f_max)
@@ -2287,17 +2285,17 @@ def _check_bucket_group(packs: list, results: list, idxs: list,
         if not rows:
             return []
         dev = lanes[d]
-        with tel.span("wgl.tables"):
-            stacked = _tables_to({name: a[rows.start:rows.stop]
-                                  for name, a in prepared.stacked.items()},
-                                 dev)
-            if _rung_kernel_takes(dev, f_max, w, info[1], stacked):
-                _rung_kernel_tables(stacked, info[1])
+        if not on_card:
+            with tel.span("wgl.tables"):
+                stacked = _tables_to(
+                    {name: a[rows.start:rows.stop]
+                     for name, a in prepared.stacked.items()}, dev)
         out = []
         for j in rows:
             p = packs[idxs[j]]
             valid, overflow, k, peak, _ = _wgl_loop(
-                {name: t[j - rows.start] for name, t in stacked.items()},
+                LadderTables(p, dev, None if on_card else {
+                    name: t[j - rows.start] for name, t in stacked.items()}),
                 p.R, p.I, f_max, w,
                 (0, *_initial_frontier(f_max, w // 32, info[1], dev)))
             rung_stats.append((peak, k))
@@ -2496,10 +2494,10 @@ def check_prefix(p: Packed, state: Optional[FrontierState] = None,
             state.result = {"valid?": True, "waves": 0}
             return state
         state.ladder = _ladder(p, None)
-        state.tables = device_tables(p, dev)
+        state.tables = LadderTables(p, dev)
         state.rung_i = 0
         state.frontier = _initial_frontier(state.ladder[0], p.w // 32,
-                                           info_dims(p)[1], dev)
+                                           state.tables.info[1], dev)
         state.k = 0
         state.peak = 1
         state.rungs = 1

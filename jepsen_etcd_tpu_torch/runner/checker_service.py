@@ -318,12 +318,13 @@ def _ladder_tables(gpacks: list, key: tuple, device, lanes: int):
     thread (``wgl.prepare_bucket_group``) for the keys the rung will
     take: on the card the wave kernel goes first, so only the keys it
     cannot take (a key it overflows is rebuilt at dispatch). None when
-    no such key is left, or one alone on one lane (it climbs the
-    ladder instead)."""
+    no such key is left, one alone on one lane (it climbs the ladder
+    instead), or the rung kernel takes the group."""
     local = list(range(len(gpacks)))
     if wgl._b1_first(device):
         local = [i for i in local if not wgl_mxu.supported(gpacks[i])]
-    if not local or (lanes == 1 and len(local) == 1):
+    if not local or (lanes == 1 and len(local) == 1) or \
+            wgl._group_on_card(key, wgl_mxu.batch_lanes(device)):
         return None
     return wgl.prepare_bucket_group(gpacks, local, key[0], key[1],
                                     lanes=lanes)

@@ -22,11 +22,11 @@ to 8, 16 and 32 with one and two count words (and 32 with four, past
 the rung kernel's two), a 3,000-op key at 5 %
 :info, and the ``register_1key_10k.faulted`` cell's fixed faulted key 0
 (13,500 ops) as it is and with an impossible read. The last tests put
-the model in the launch's place behind the real route
-(``_check_packed_impl``), the rung kernel's model beside it: the same
-dicts as the host build, the tables built on the card where the rung
-kernel takes the first rung run, and the host's int64 tables added
-where the ladder leaves the kernel.
+the model in the launch's place behind the real routes (a lone ladder,
+a batched group, ``check_prefix``), the rung kernel's model beside it:
+the same dicts as the host build, a key's tables built on the card
+once where the rung kernel takes its rung runs, and the host's int64
+tables added where the ladder leaves the kernel.
 """
 
 import random
@@ -44,6 +44,7 @@ from jepsen_etcd_tpu_torch.testing import concurrent_writes_history, \
     gen_history, impossible_read_at
 
 from test_torch_fixtures import one_torch_thread  # noqa: F401
+from test_torch_wgl_ladder import BUDGETS
 from test_torch_wgl_rung_model import kernel_limits, rung_model
 
 W = 32
@@ -208,18 +209,20 @@ def test_the_launch_refuses_tensors_off_the_card():
         _cuda.wgl_frames(inputs.to(torch.int64), p.R, p.I, rows, info)
 
 
+def frames_launch(inputs, R, I, rows, info) -> None:
+    """``frames_model`` in ``_cuda.wgl_frames``' place."""
+    got = frames_model(inputs.numpy(), R, I, info.shape[1] // 2,
+                       rows.shape[0])
+    rows.copy_(torch.from_numpy(got[0]))
+    if info.numel():
+        info.copy_(torch.from_numpy(got[1]))
+
+
 @pytest.fixture
 def card_model(monkeypatch):
     """The card's routes taken on the CPU: the frame builder's model and
     the rung kernel's model in their launches' places."""
     fits = wgl._rung_kernel_fits
-
-    def frames(inputs, R, I, rows, info):
-        got = frames_model(inputs.numpy(), R, I, info.shape[1] // 2,
-                           rows.shape[0])
-        rows.copy_(torch.from_numpy(got[0]))
-        if info.numel():
-            info.copy_(torch.from_numpy(got[1]))
 
     def rung(rows, info, cls, fr, n_alive, out, res, R, k0, lim):
         got, r, _ = rung_model(rows.numpy(), info.numpy(), cls.numpy(),
@@ -230,9 +233,8 @@ def card_model(monkeypatch):
     monkeypatch.setattr(wgl, "_rung_kernel_fits",
                         lambda dev, *a: fits(torch.device("cuda"), *a))
     monkeypatch.setattr(_cuda, "wgl_rung_limits", kernel_limits)
-    monkeypatch.setattr(_cuda, "wgl_frames", frames)
+    monkeypatch.setattr(_cuda, "wgl_frames", frames_launch)
     monkeypatch.setattr(_cuda, "wgl_rung", rung)
-    monkeypatch.setattr(wgl, "FRAME_BUILDS", 0)
 
 
 def plain_route(fn):
@@ -286,15 +288,16 @@ def test_a_ladder_the_kernel_begins_builds_its_tables_on_the_card(
                                                      device="cpu")),
         tmp_path)
     assert got == want and got["valid?"] is True
-    assert (on, cards, wgl.FRAME_BUILDS) == (["card"], 1, 1)
+    assert (on, cards) == (["card"], 1)
     assert want_on == ["host"]
 
 
 def test_a_ladder_that_leaves_the_kernel_adds_the_host_tables(
         card_model, tmp_path):
     """32 -> 128 in the kernel, then the plain rungs from 256 read the
-    host's tables; past the top rung the deferred spill hands them back
-    with the frozen frontier."""
+    host's tables; past the top rung the deferred spill hands back the
+    key's tables with the frozen frontier, both views built, the card's
+    bit for bit its plain version."""
     rng = random.Random(31)
     packs = [wgl.pack_register_history(gen_history(
         rng, n_procs=10, n_ops=60, values=4, info_rate=0.25,
@@ -307,34 +310,101 @@ def test_a_ladder_that_leaves_the_kernel_adds_the_host_tables(
     assert (on, cards) == (["card", "host"], 1)
     q = wgl.pack_register_history(concurrent_writes_history(16,
                                                             read_val=1))
-    got = wgl.check_packed(q, f_max=32, spill=False, device="cpu")
+    got, on, cards = recorded(
+        lambda: wgl.check_packed(q, f_max=32, spill=False, device="cpu"),
+        tmp_path)
     want = plain_route(lambda: wgl.check_packed(q, f_max=32, spill=False,
                                                 device="cpu"))
     assert strip(got) == strip(want) and got["overflow"]
+    assert (on, cards) == (["card", "host"], 1)
     tables, frontier, k = got["_resume"]
     assert k == want["_resume"][2]
     assert frontier_bytes(frontier) == frontier_bytes(want["_resume"][1])
-    assert "shift" in tables and wgl.RUNG_TABLES[0] in tables
+    # both views are there: reading them builds nothing more
+    (rung, plain), on, cards = recorded(
+        lambda: (tables.rung, dict(tables)), tmp_path)
+    assert (on, cards) == ([], 0)
+    for got_t, want_t in zip(rung, wgl._rung_kernel_tables(plain, 0)):
+        assert torch.equal(got_t, want_t)
     assert wgl.spill_packed(q, *got["_resume"]) == \
         wgl.spill_packed(q, *want["_resume"])
-    assert wgl.FRAME_BUILDS == 2
 
 
 def test_routes_outside_the_kernel_build_on_the_host(card_model, tmp_path):
-    """Four count words (past NI_CAP), ``check_prefix`` and a batched
-    group take the host's frames, as before."""
-    p = drawn("c_pad 32, ni 4")
-    got, on, cards = recorded(
-        lambda: wgl.check_packed(p, f_max=32, device="cpu"), tmp_path)
-    assert (on, cards) == (["host"], 0)
-    q = drawn("c_pad 8, ni 1")
-    state, on, cards = recorded(
-        lambda: wgl.check_prefix(q, max_waves=10 ** 6, device="cpu"),
-        tmp_path)
-    assert state.done and (on, cards) == (["host"], 0)
-    r = drawn("c_pad 8, ni 1")
+    """Four count words (past NI_CAP) and a two-word window take the
+    host's frames, as does every route with the kernel's route off."""
+    wide = wgl.pack_register_history(gen_history(
+        random.Random(1), n_procs=16, n_ops=80, dur_scale=20.0,
+        info_rate=0.2))
+    assert (wide.w, wgl.info_dims(wide)[:2]) == (64, (8, 1))
+    for p in (drawn("c_pad 32, ni 4"), wide):
+        got, on, cards = recorded(
+            lambda: wgl.check_packed(p, f_max=32, device="cpu"), tmp_path)
+        assert got == plain_route(lambda: wgl.check_packed(p, f_max=32,
+                                                           device="cpu"))
+        assert (on, cards) == (["host"], 0)
+
+
+def test_check_prefix_and_a_batched_group_build_on_the_card(card_model,
+                                                            tmp_path):
+    """``check_prefix`` paused at every budget of ``BUDGETS`` and a
+    batched group of two keys: one card build a key the kernel takes,
+    none with the kernel's route off; the same dicts and frozen
+    frontiers as the plain route."""
+    def paused(q, budget):
+        states, state = [], None
+        while state is None or not state.done:
+            state = wgl.check_prefix(q, state, max_waves=budget,
+                                     device="cpu")
+            states.append((state.done, state.k, state.rungs, state.peak,
+                           None if state.done
+                           else frontier_bytes(state.frontier)))
+        return states, strip(state.result)
+
+    for budget in BUDGETS:
+        # packed anew: the host's frames, once built, stay on a pack
+        q = drawn("c_pad 8, ni 1")
+        got, on, cards = recorded(lambda: paused(q, budget), tmp_path)
+        want, want_on, want_cards = recorded(
+            lambda: plain_route(lambda: paused(q, budget)), tmp_path)
+        assert got == want and got[1]["valid?"] is True
+        assert (on, cards, want_on, want_cards) == \
+            (["card"], 1, ["host"], 0)
     out, on, cards = recorded(
-        lambda: wgl.check_packed_batch([r, r], f_max=32, device="cpu"),
+        lambda: wgl.check_packed_batch([q, q], f_max=32, device="cpu"),
         tmp_path)
-    assert all(o["batched"] for o in out) and cards == 0
-    assert wgl.FRAME_BUILDS == 0
+    want, _, want_cards = recorded(lambda: plain_route(
+        lambda: wgl.check_packed_batch([q, q], f_max=32, device="cpu")),
+        tmp_path)
+    assert [strip(o) for o in out] == [strip(o) for o in want]
+    assert all(o["batched"] for o in out)
+    assert (cards, want_cards) == (2, 0)
+
+
+def test_a_group_the_kernel_takes_gets_no_host_tables(card_model,
+                                                      monkeypatch,
+                                                      tmp_path):
+    """The checker service pads a group's host tables ahead only where
+    the rung kernel does not take its rung (``_ladder_tables``); the
+    sharded rung over two lanes builds each key's on the card and pads
+    nothing on the host: the plain route's dicts."""
+    from jepsen_etcd_tpu_torch.ops import wgl_mxu
+    from jepsen_etcd_tpu_torch.runner import checker_service
+    q = drawn("c_pad 8, ni 1")
+    key = wgl.group_key(q)
+    monkeypatch.setattr(wgl_mxu, "batch_lanes",
+                        lambda device=None: [CPU] * 2)
+    assert checker_service._ladder_tables([q, q], key, None, 2) is None
+    assert checker_service._ladder_tables([q, q], key, "cpu", 1) is None
+    prep = plain_route(lambda: checker_service._ladder_tables(
+        [q, q], key, "cpu", 1))
+    assert (prep.n, prep.key) == (2, key)
+    want = plain_route(lambda: wgl.check_packed_batch([q, q], shard=True))
+    padded = []
+    monkeypatch.setattr(wgl, "prepare_bucket_group",
+                        lambda *a, **kw: padded.append(a))
+    out, on, cards = recorded(
+        lambda: wgl.check_packed_batch([q, q], shard=True), tmp_path)
+    assert [strip(o) for o in out] == [strip(o) for o in want]
+    assert all(o["batched"] for o in out)
+    assert (padded, on, cards) == ([], ["card", "card"], 2)

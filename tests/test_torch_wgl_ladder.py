@@ -330,7 +330,7 @@ def test_wave_loop_host_sync_cadence_leaves_results_unchanged(
     h = _concurrent_writes_history(12, read_val=9)
     p = wgl.pack_register_history(port(h))
     cpu = wgl.resolve_device("cpu")
-    tables = wgl.device_tables(p, cpu)
+    tables = wgl.LadderTables(p, cpu)
     for f, k_stop in [(128, None), (1024, None), (1024, 5)]:
         init = (0, *wgl._initial_frontier(f, 1, 0, cpu))
         monkeypatch.setattr(wgl, "SYNC_EVERY", 1)

@@ -16,10 +16,11 @@ The rung kernel's tables built on the card (``wgl.card_tables``,
 csrc/wgl_frames.cu; its numpy model is
 ``tests/test_torch_wgl_frames_model.py``) equal the host's frames
 narrowed bit for bit, on the fuzz, the benchmark cells' faulted keys
-and the 1-key cell's key 0 accepted and refuted; a ladder begun on
-them gives the host build's dicts and frozen frontiers, and one that
-leaves the kernel (past rung 128, or at four count words) the same
-dict as before, with the card builds counted. Runs on a card without
+and the 1-key cell's key 0 accepted and refuted; the kernel on them
+gives the host build's dicts and frozen frontiers, one card build a
+key on a lone ladder, a batched group and ``check_prefix``, and a key
+that leaves the kernel (past rung 128, or at four count words) the
+same dict as before. Runs on a card without
 JAX: ``python -m pytest --noconftest -m cuda
 tests/test_torch_wgl_rung.py``.
 """
@@ -124,7 +125,7 @@ def test_kernel_equals_plain_on_fuzz(card, plain, monkeypatch, info,
         assert got == plain(lambda: wgl.check_packed(p, f_max=32,
                                                      device=card))
         # one rung run, paused at each k_stop: the frozen frontier
-        tables = wgl.device_tables(p, card)
+        tables = wgl.LadderTables(p, card)
         ni = wgl.info_dims(p)[1]
         for f, k_stop in [(32, None), (128, None), (32, 5), (128, 1)]:
             init = (0, *wgl._initial_frontier(f, 1, ni, card))
@@ -138,10 +139,12 @@ def test_kernel_equals_plain_on_fuzz(card, plain, monkeypatch, info,
 
 @pytest.mark.cuda
 def test_kernel_equals_plain_on_the_benchmarks_faulted_keys(card, plain,
-                                                            monkeypatch):
+                                                            monkeypatch,
+                                                            tmp_path):
     """Two of the faulted cell's fixed keys (1,582 and 1,588 ops, 12 or
     13 info ops): each alone on the ladder from rung 32, and the two as
-    one batched group at F = 128, every rung run in the kernel."""
+    one batched group at F = 128, every rung run in the kernel on
+    tables built on the card, one build a key."""
     packs = [faulted_key(0), faulted_key(1)]
     assert wgl.group_key(packs[0]) == wgl.group_key(packs[1])
     monkeypatch.setattr(wgl, "RUNG_LAUNCHES", 0)
@@ -151,10 +154,12 @@ def test_kernel_equals_plain_on_the_benchmarks_faulted_keys(card, plain,
         assert got == plain(lambda: wgl.check_packed(p, f_max=32,
                                                      device=card))
         assert got["valid?"] is True and got["waves"] > 1500
-    got = wgl.check_packed_batch(packs, try_fused=False, device=card)
+    got, on, cards = card_built(lambda: wgl.check_packed_batch(
+        packs, try_fused=False, device=card), tmp_path)
     want = plain(lambda: wgl.check_packed_batch(packs, try_fused=False,
                                                 device=card))
     assert got == want and all(g["batched"] for g in got)
+    assert (on, cards) == (["card", "card"], 2)
     # the plain runs counted rung runs too; the kernel's were its own
     assert wgl.RUNG_KERNEL_LAUNCHES == 4
     assert wgl.RUNG_LAUNCHES == 8
@@ -195,7 +200,8 @@ def test_kernel_equals_plain_on_a_batched_rung_that_overflows(card, plain):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("budget", BUDGETS)
-def test_check_prefix_equals_plain_at_every_pause(card, plain, budget):
+def test_check_prefix_equals_plain_at_every_pause(card, plain, budget,
+                                                  tmp_path):
     hists = [gen_history(random.Random(s), n_procs=5, n_ops=40,
                          info_rate=0.1 if s % 2 else 0.0) for s in (7, 21)]
     hists.append(gen_history(random.Random(31), n_procs=10, n_ops=60,
@@ -203,8 +209,11 @@ def test_check_prefix_equals_plain_at_every_pause(card, plain, budget):
     for h in hists:
         p = wgl.pack_register_history(h)
         got = want = None
+        builds = 0
         while True:
-            got = wgl.check_prefix(p, got, max_waves=budget, device=card)
+            got, _, cards = card_built(lambda: wgl.check_prefix(
+                p, got, max_waves=budget, device=card), tmp_path)
+            builds += cards
             want = plain(lambda: wgl.check_prefix(
                 p, want, max_waves=budget, device=card))
             assert (got.done, got.k, got.rungs, got.rung_i, got.peak,
@@ -216,6 +225,7 @@ def test_check_prefix_equals_plain_at_every_pause(card, plain, budget):
             assert frontier_bytes(got.frontier) == \
                 frontier_bytes(want.frontier)
         assert strip(got.result) == strip(want.result)
+        assert builds == 1
 
 
 @pytest.mark.cuda
@@ -278,9 +288,8 @@ def test_card_tables_equal_the_host_paths(card, which):
         assert p.ok and p.w == 32 and ni <= 2
         got = wgl.card_tables(p, card)
         want = wgl._rung_kernel_tables(wgl.device_tables(p, card), ni)
-        assert list(got) == list(wgl.RUNG_TABLES)
-        for name, w in zip(wgl.RUNG_TABLES, want):
-            g = got[name]
+        assert len(got) == len(want) == 3
+        for name, g, w in zip(("rows", "info", "cls"), got, want):
             assert g.dtype == w.dtype == torch.int32, name
             assert g.shape == w.shape and g.is_contiguous(), name
             assert torch.equal(g, w), name
@@ -292,23 +301,31 @@ def test_a_ladder_on_card_built_tables_equals_the_host_builds(card, plain,
                                                               monkeypatch,
                                                               which,
                                                               tmp_path):
-    """The rung kernel on the card's tables and on the host's, paused
-    halfway and run to the end: the same frozen frontier bytes; and
-    ``check_packed`` the same dict as the host build (the kernel's
-    route off), one card build a key."""
-    monkeypatch.setattr(wgl, "FRAME_BUILDS", 0)
+    """The rung kernel on the card's tables and on the host's (its
+    plain version in ``card_tables``' place), paused halfway and run to
+    the end: the same frozen frontier bytes, one card build a run on
+    the card's; and ``check_packed`` the same dict as the host build
+    (the kernel's route off), one card build a key."""
+    def host_built(p, dev):
+        return wgl._rung_kernel_tables(wgl.device_tables(p, dev),
+                                       wgl.info_dims(p)[1])
+
     packs = CARD_PACKS[which]()
     for p in packs:
         ni = wgl.info_dims(p)[1]
         for k_stop in (p.R // 2, None):
             runs = []
-            for tables in (wgl.card_tables(p, card),
-                           wgl.device_tables(p, card)):
+            for build in (wgl.card_tables, host_built):
                 init = (0, *wgl._initial_frontier(32, 1, ni, card))
-                *head, fr = wgl._wgl_loop(tables, p.R, p.I, 32, 32, init,
-                                          k_stop)
-                runs.append((head, frontier_bytes(fr)))
-            assert runs[0] == runs[1]
+                with monkeypatch.context() as m:
+                    m.setattr(wgl, "card_tables", build)
+                    (*head, fr), _, cards = card_built(
+                        lambda: wgl._wgl_loop(wgl.LadderTables(p, card),
+                                              p.R, p.I, 32, 32, init,
+                                              k_stop), tmp_path)
+                runs.append((head, frontier_bytes(fr), cards))
+            assert runs[0][:2] == runs[1][:2]
+            assert (runs[0][2], runs[1][2]) == (1, 0)
         if which == "1-key cell":
             continue          # ~10,700 plain waves a key: chip_smoke.py
         got, on, cards = card_built(
@@ -319,8 +336,6 @@ def test_a_ladder_on_card_built_tables_equals_the_host_builds(card, plain,
                                      device=card)), tmp_path)
         assert strip(got) == strip(want)
         assert (on, cards, want_cards) == (["card"], 1, 0)
-    assert wgl.FRAME_BUILDS == 2 * len(packs) + (
-        0 if which == "1-key cell" else len(packs))
 
 
 @pytest.mark.cuda

@@ -3,11 +3,12 @@ held after EVERY wave against the plain version, ``_expand`` /
 ``_wgl_loop`` run a wave at a time.
 
 The kernel has no CPU mode, so its design is checked here. The model
-reads the int32 tables ``wgl._rung_kernel_tables`` narrows for it and
-writes what the kernel writes, so it stands in for the launch
-(``_cuda.wgl_rung``) behind the real wrapper ``_rung_kernel_loop``: the
-route, the narrowing and the frontier's round trip are the program's
-own. Its steps, as the model writes them:
+reads the int32 tables the card builds for it (``wgl.card_tables``,
+with csrc/wgl_frames.cu's own model, ``frames_launch``, in its launch's
+place) and writes what the kernel writes, so it stands in for the
+launch (``_cuda.wgl_rung``) behind the real wrapper
+``_rung_kernel_loop``: the route, the tables and the frontier's round
+trip are the program's own. Its steps, as the model writes them:
 
 - expansion: warp w takes states s = w + 32 t; a state that is a
   sentinel, at depth >= R, or whose version passes the least ceiling of
@@ -33,7 +34,8 @@ peak and n_alive must equal the plain loop's, tolerance 0: on
 ``tests/test_torch_wgl_ladder.py``'s fuzz at w = 32 with and without
 info ops and corruption, on searches that overflow and climb the
 ladder (a lone ladder 32 -> 128 -> 256 -> ..., a batched rung at 128
-whose key climbs from 512), and at every pause of its ``BUDGETS``.
+whose key climbs from 512), on batched groups, and at every pause of
+its ``BUDGETS``.
 """
 
 import contextlib
@@ -292,9 +294,11 @@ def model_card(monkeypatch):
     """The rung kernel's route taken on the CPU, with the model in the
     launch's place: every rung run the kernel would take is answered by
     the model through the real ``_rung_kernel_loop`` and held, wave by
-    wave, against the plain loop on the same tables. Returns the held
-    runs' (waves, largest n_new, overflowed)."""
-    takes = wgl._rung_kernel_takes
+    wave, against the plain loop on the same key's tables; the tables
+    the model reads are built by the frame builder's model. Returns the
+    held runs' (waves, largest n_new, overflowed)."""
+    from test_torch_wgl_frames_model import frames_launch
+    fits = wgl._rung_kernel_fits
     loop = wgl._rung_kernel_loop
     runs = []
     last = {}
@@ -319,10 +323,11 @@ def model_card(monkeypatch):
                      got[1]))
         return got
 
-    monkeypatch.setattr(wgl, "_rung_kernel_takes",
-                        lambda dev, *a: takes(torch.device("cuda"), *a))
+    monkeypatch.setattr(wgl, "_rung_kernel_fits",
+                        lambda dev, *a: fits(torch.device("cuda"), *a))
     monkeypatch.setattr(_cuda, "wgl_rung_limits", kernel_limits)
     monkeypatch.setattr(wgl, "_rung_kernel_loop", held)
+    monkeypatch.setattr(_cuda, "wgl_frames", frames_launch)
     monkeypatch.setattr(_cuda, "wgl_rung", launch)
     monkeypatch.setattr(wgl, "RUNG_KERNEL_LAUNCHES", 0)
     return runs
@@ -334,16 +339,15 @@ def test_route_takes_one_word_windows_up_to_128_on_the_card(monkeypatch):
     assert kernel_limits() == (128, 32, 2)
     monkeypatch.setattr(_cuda, "wgl_rung_limits", kernel_limits)
     cuda, cpu = torch.device("cuda"), CPU
-    t = {"c_size": torch.zeros(16)}
-    assert wgl._rung_kernel_takes(cuda, 32, 32, 1, t)
-    assert wgl._rung_kernel_takes(cuda, 128, 32, 1, t)
-    assert wgl._rung_kernel_takes(cuda, 128, 32, 0, {})
-    assert not wgl._rung_kernel_takes(cpu, 32, 32, 1, t)
-    assert not wgl._rung_kernel_takes(cuda, 256, 32, 1, t)
-    assert not wgl._rung_kernel_takes(cuda, 32, 64, 1, t)
-    assert not wgl._rung_kernel_takes(cuda, 32, 32, 4, t)
-    assert not wgl._rung_kernel_takes(cuda, 32, 32, 1,
-                                      {"c_size": torch.zeros(64)})
+    fits = wgl._rung_kernel_fits
+    assert fits(cuda, 32, 32, 16, 1)
+    assert fits(cuda, 128, 32, 16, 1)
+    assert fits(cuda, 128, 32, 0, 0)
+    assert not fits(cpu, 32, 32, 16, 1)
+    assert not fits(cuda, 256, 32, 16, 1)
+    assert not fits(cuda, 32, 64, 16, 1)
+    assert not fits(cuda, 32, 32, 16, 4)
+    assert not fits(cuda, 32, 32, 64, 1)
 
 
 def test_the_launch_refuses_tensors_off_the_card():
@@ -366,9 +370,13 @@ def test_the_launch_refuses_tensors_off_the_card():
 
 
 @pytest.mark.parametrize("seed", [31, 3210])
-def test_a_groups_stacked_tables_narrow_as_each_keys(seed):
-    """A lane narrows its keys' stacked tables once; each key's slice of
-    them equals its own tables narrowed alone."""
+def test_a_batched_group_builds_each_keys_tables_on_the_card(
+        model_card, seed, tmp_path):
+    """Three keys of one group on the batched rung at 128: each key's
+    tables built once on the card, its rung run held wave by wave, and
+    the same dicts as the plain route (the group's stacked host
+    tables)."""
+    from test_torch_wgl_frames_model import recorded
     rng = random.Random(seed)
     groups = {}
     while True:
@@ -380,19 +388,14 @@ def test_a_groups_stacked_tables_narrow_as_each_keys(seed):
             same.append(p)
             if len(same) == 3:
                 break
-    key = wgl.group_key(same[0])
-    prepared = wgl.prepare_bucket_group(same, [0, 1, 2], key[0], key[1])
-    stacked = wgl._tables_to(prepared.stacked, CPU)
-    ni = key[1][1]
-    whole = wgl._rung_kernel_tables(stacked, ni)
-    assert wgl._rung_kernel_tables(stacked, ni)[0] is whole[0]
-    for j in range(3):
-        alone = wgl._rung_kernel_tables(
-            {name: t[j] for name, t in stacked.items()
-             if name not in wgl.RUNG_TABLES}, ni)
-        for a, b in zip(whole, alone):
-            assert a[j].is_contiguous()
-            assert torch.equal(a[j], b)
+    got, _, cards = recorded(
+        lambda: wgl.check_packed_batch(same, device="cpu"), tmp_path)
+    with plain_route():
+        want, _, want_cards = recorded(
+            lambda: wgl.check_packed_batch(same, device="cpu"), tmp_path)
+    assert [strip(g) for g in got] == [strip(x) for x in want]
+    assert (cards, want_cards) == (3, 0)
+    assert len(model_card) == 3
 
 
 def test_ranks_are_lex_orders():
