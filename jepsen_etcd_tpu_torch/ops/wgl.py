@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import operator
 import threading
 import time
 from collections.abc import Mapping
@@ -709,6 +710,354 @@ def _extract_key_columns(rows, lists, ilists):
     return st.finish()
 
 
+_NONE_T = type(None)
+_INT_OR_NONE = frozenset((int, _NONE_T))
+_SEQ = frozenset((list, tuple))
+_SEQ_OR_NONE = frozenset((list, tuple, _NONE_T))
+_F_CLASSES = {"read": READ, "write": WRITE, "cas": CAS}
+_F_OTHER = 3     # an f the extraction does not take (its ops delegate)
+
+
+def _f_classes(f_table, codes: np.ndarray):
+    """The f class of each row of ``codes`` (indices into ``f_table``):
+    READ, WRITE, CAS, or _F_OTHER for any other f and for anything not
+    exactly a str, whose comparisons only the loop reproduces; None
+    where a code lies outside the table."""
+    if len(codes) and (codes.min() < 0 or codes.max() >= len(f_table)):
+        return None
+    return np.array([_F_CLASSES.get(f, _F_OTHER) if type(f) is str
+                     else _F_OTHER for f in f_table], dtype=np.int8)[codes]
+
+
+def _none_at(seq) -> np.ndarray:
+    """Positions of None in ``seq``, whose items are all None or of
+    types that equal None only by identity."""
+    at, i = [], -1
+    try:
+        while True:
+            i = seq.index(None, i + 1)
+            at.append(i)
+    except ValueError:
+        return np.array(at, dtype=np.int64)
+
+
+def _take(seq, idx: np.ndarray) -> list:
+    """The items of ``seq`` at ``idx``, as a new list."""
+    idx = idx.tolist()
+    if len(idx) > 1:
+        return list(operator.itemgetter(*idx)(seq))
+    return [seq[i] for i in idx]
+
+
+def _int_field(xs: list):
+    """``(is_none, values)`` of payload fields that are each None or an
+    int (``type(x) is int``: no bool), None standing as 0 in ``values``
+    (``xs``, the caller's own list, is changed so); None where a field
+    is anything else or leaves int64."""
+    kinds = set(map(type, xs))
+    if not kinds <= _INT_OR_NONE:
+        return None
+    none = np.zeros(len(xs), dtype=bool)
+    if _NONE_T in kinds:
+        at = _none_at(xs)
+        none[at] = True
+        for i in at.tolist():
+            xs[i] = 0
+    try:
+        return none, np.array(xs, dtype=np.int64)
+    except OverflowError:
+        return None
+
+
+def _pairs(evs, kinds=None):
+    """``(firsts, seconds)`` of payloads that are each a list or tuple
+    of two (``kinds``, where given, their types); None where one is
+    not."""
+    if not (set(map(type, evs)) if kinds is None else kinds) <= _SEQ:
+        return None
+    try:
+        return [a for a, _ in evs], [b for _, b in evs]
+    except ValueError:
+        return None
+
+
+def _versions(rvs: list):
+    """The ``ver`` column of version assertions: NO_ASSERT for None, the
+    int where ``-(2**29) < rv < 2**29``; None where any is outside."""
+    got = _int_field(rvs)
+    if got is None:
+        return None
+    none, ver = got
+    lo, hi = -(2 ** 29), 2 ** 29
+    if np.any(~none & ((ver <= lo) | (ver >= hi))):
+        return None
+    ver[none] = NO_ASSERT
+    return ver
+
+
+def _tags(got, none_tag: int):
+    """``(tag, value)`` columns of one value field: 2 for an int,
+    ``none_tag`` for None."""
+    none, vals = got
+    return np.where(none, np.int8(none_tag), np.int8(2)), vals
+
+
+def _payload_pairs(payloads, at: np.ndarray, none_ok: bool):
+    """``(kept, firsts, seconds)`` of the payloads ``payloads(at)``, each a
+    list or tuple of two; where ``none_ok`` a None payload is passed
+    over, and ``kept`` holds the positions of the others (None: all).
+    None where a payload is anything else."""
+    evs = payloads(at)
+    kinds = set(map(type, evs))
+    kept = None
+    if none_ok and _NONE_T in kinds and kinds <= _SEQ_OR_NONE:
+        kept = np.delete(np.arange(len(evs)), _none_at(evs))
+        evs = [e for e in evs if e is not None]
+        kinds.discard(_NONE_T)
+    got = _pairs(evs, kinds)
+    return None if got is None else (kept, *got)
+
+
+def _decode_required(payloads, at: np.ndarray, fcls: np.ndarray):
+    """The ``ver``, ``v1t``/``v1v`` and ``v2t``/``v2v`` columns of the ok
+    completions whose payloads are ``payloads(at)`` (``fcls`` the op's
+    class), set as the loop sets them; None where the loop would
+    delegate or raise, or where a payload's shape is one it would
+    unpack but this does not take."""
+    n = len(at)
+    ver = np.full(n, NO_ASSERT, dtype=np.int64)
+    v1t = np.zeros(n, dtype=np.int8)
+    v1v = np.zeros(n, dtype=np.int64)
+    v2t = np.zeros(n, dtype=np.int8)
+    v2v = np.zeros(n, dtype=np.int64)
+    for fc in (READ, WRITE, CAS):
+        idx = np.flatnonzero(fcls == fc)
+        if not len(idx):
+            continue
+        # a read that returned None asserts nothing
+        got = _payload_pairs(payloads, at[idx], fc == READ)
+        if got is None:
+            return None
+        kept, rvs, xs = got
+        if kept is not None:
+            idx = idx[kept]
+        v = _versions(rvs)
+        if v is None:
+            return None
+        ver[idx] = v
+        # None: a read's wildcard, a write's or cas's unset value
+        none_tag = 0 if fc == READ else 1
+        if fc == CAS:
+            got = _pairs(xs)
+            if got is None:
+                return None
+            old, new = _int_field(got[0]), _int_field(got[1])
+            if old is None or new is None:
+                return None
+            v2t[idx], v2v[idx] = _tags(new, none_tag)
+        else:
+            old = _int_field(xs)
+            if old is None:
+                return None
+        v1t[idx], v1v[idx] = _tags(old, none_tag)
+    return ver, v1t, v1v, v2t, v2v
+
+
+def _decode_info(payloads, at: np.ndarray, fcls: np.ndarray):
+    """The ``i1t``/``i1v`` and ``i2t``/``i2v`` columns of the indefinite
+    updates (write or cas) whose invocations' payloads are
+    ``payloads(at)``, as :func:`_classify_info` sets them; None where it
+    would delegate."""
+    n = len(at)
+    i1t = np.zeros(n, dtype=np.int8)
+    i1v = np.zeros(n, dtype=np.int64)
+    i2t = np.zeros(n, dtype=np.int8)
+    i2v = np.zeros(n, dtype=np.int64)
+    for fc in (WRITE, CAS):
+        idx = np.flatnonzero(fcls == fc)
+        if not len(idx):
+            continue
+        # a write of None payload writes nothing: tags 0
+        got = _payload_pairs(payloads, at[idx], fc == WRITE)
+        if got is None:
+            return None
+        kept, vas, xs = got
+        if not set(map(type, vas)) <= {_NONE_T}:
+            return None               # a version-asserting info op
+        if kept is not None:
+            idx = idx[kept]
+        if fc == CAS:
+            got = _pairs(xs)
+            if got is None:
+                return None
+            old, new = _int_field(got[0]), _int_field(got[1])
+            if old is None or new is None:
+                return None
+            i2t[idx], i2v[idx] = _tags(new, 0)
+        else:
+            old = _int_field(xs)
+            if old is None:
+                return None
+        i1t[idx], i1v[idx] = _tags(old, 0)
+    return i1t, i1v, i2t, i2v
+
+
+def _int_rows(arrays):
+    """The concatenation of per-key code columns as int64, where each is
+    a 1-D integer array that int64 holds; None otherwise."""
+    for x in arrays:
+        if type(x) is not np.ndarray or x.ndim != 1:
+            return None
+    out = np.concatenate(arrays)
+    k = out.dtype.kind
+    if k == "i" or (k == "u" and out.dtype.itemsize < 8):
+        return out.astype(np.int64, copy=False)
+    return None
+
+
+def _rows_of_keys(cols_list):
+    """Every key's rows, keys in order: ``(starts, type codes, f
+    classes, processes)``, ``starts`` each key's first row and the
+    end, the rows of a non-int process marked -1 in ``processes``;
+    None where :func:`_rows_from_columns` would decode a row otherwise
+    than these arrays say (a code out of its table, an int process in
+    ``proc_table``) or the columns are not what it reads."""
+    lens = [len(c.values) for c in cols_list]
+    cols = [(c.type_code, c.f_code, c.proc) for c in cols_list]
+    if any(len(x) != n for n, three in zip(lens, cols) for x in three):
+        return None
+    tc, fc, pr = (_int_rows(x) for x in zip(*cols))
+    if tc is None or fc is None or pr is None:
+        return None
+    if len(tc) and (tc.min() < 0 or tc.max() > 3):
+        return None
+    starts = np.zeros(len(lens) + 1, dtype=np.int64)
+    np.cumsum(lens, out=starts[1:])
+    fcl = [_f_classes(c.f_table, fc[s:e])
+           for c, s, e in zip(cols_list, starts, starts[1:])]
+    if any(x is None for x in fcl):
+        return None
+    neg = np.flatnonzero(pr < 0)
+    if len(neg):
+        key = np.searchsorted(starts, neg, side="right") - 1
+        for j in np.unique(key).tolist():
+            pt = cols_list[j].proc_table
+            used = np.unique(-1 - pr[neg[key == j]]).tolist()
+            if used[-1] >= len(pt) or any(isinstance(pt[i], int)
+                                          for i in used):
+                return None
+        pr[neg] = -1
+    return starts, tc, np.concatenate(fcl), pr
+
+
+def _columnar_extract(cols_list):
+    """The extraction loop's output for several column-backed keys at
+    once, computed with numpy from their columns rather than an op at a
+    time. Over each key's int-process rows, numbered 1 on as the loop
+    numbers them: a stable sort by (key, process) gives each row the
+    row before it of its process; a completion pairs with that invoke.
+    An ok completion gives a required op (``inv``, ``ret``, the
+    invoke's f, the completion's payload), an info completion of a
+    write or cas an indefinite update (the invocation's payload), and
+    ops still open at the end indefinite updates after them, as
+    ``finish`` takes them. Returns ``(n_req, n_info, inv, ret, f, ver,
+    v1t, v1v, v2t, v2v, ipos, if, i1t, i1v, i2t, i2v)``: the per-key
+    counts, then the loop's 8 required-op and 6 indefinite-update
+    columns, keys in order, each key's rows in the loop's order. None
+    where any key holds what only the loop is sure of: a process whose
+    rows do not alternate invoke and completion, an f other than read,
+    write and cas on an op that did not fail, a payload of another
+    shape or with a non-int value."""
+    got = _rows_of_keys(cols_list)
+    if got is None:
+        return None
+    starts, tc, fcl, pr = got
+    K = len(cols_list)
+    kr = np.repeat(np.arange(K), np.diff(starts))
+    rows = np.arange(len(pr))
+    if len(pr) and pr.min() < 0:
+        rows = np.flatnonzero(pr >= 0)      # int-process rows
+        kr, pr, tc, fcl = kr[rows], pr[rows], tc[rows], fcl[rows]
+    n = len(rows)
+    kstart = np.zeros(K, dtype=np.int64)
+    np.cumsum(np.bincount(kr, minlength=K)[:-1], out=kstart[1:])
+    pos = np.arange(1, n + 1, dtype=np.int64) - kstart[kr]
+
+    # per (key, process), rows alternate invoke and completion
+    order = np.lexsort((pr, kr))
+    sk, sp = kr[order], pr[order]
+    same = np.flatnonzero((sk[1:] == sk[:-1]) & (sp[1:] == sp[:-1]))
+    prev = np.full(n, -1, dtype=np.int64)
+    prev[order[same + 1]] = order[same]
+    inv = tc == 0
+    after_inv = np.zeros(n, dtype=bool)
+    after_inv[order[same + 1]] = inv[order[same]]
+    if not np.array_equal(~inv, after_inv):
+        return None
+    comp = np.flatnonzero(~inv)             # completions, in row order
+    a = prev[comp]                          # ... and their invokes
+    closed = np.zeros(n, dtype=bool)
+    closed[a] = True
+    still = np.flatnonzero(inv & ~closed)   # open at the history end
+    ct, fa = tc[comp], fcl[a]
+    if np.any((fa == _F_OTHER) & (ct != 2)) \
+            or np.any(fcl[still] == _F_OTHER):
+        return None
+
+    def payloads(at):
+        # the payloads of rows ``at`` (keys in order), each taken from
+        # its key's own list
+        if K == 1:
+            return _take(cols_list[0].values, at)
+        cut = np.cumsum(np.bincount(
+            np.searchsorted(starts, at, side="right") - 1,
+            minlength=K))[:-1]
+        out: list = []
+        for cols, s, part in zip(cols_list, starts, np.split(at, cut)):
+            out += _take(cols.values, part - s)
+        return out
+
+    # required ops in completion order, as the loop appends them
+    ok = ct == 1
+    ra, rc = a[ok], comp[ok]
+    rf = fcl[ra]
+    req = _decode_required(payloads, rows[rc], rf)
+    if req is None:
+        return None
+    # indefinite updates: a key's info completions in order, then its
+    # still-open ops in invoke order
+    inf = (ct == 3) & (fa != READ)
+    ia = np.concatenate([a[inf], still[fcl[still] != READ]])
+    ia = ia[np.argsort(kr[ia], kind="stable")]
+    i_f = fcl[ia]
+    info = _decode_info(payloads, rows[ia], i_f)
+    if info is None:
+        return None
+    return (np.bincount(kr[ra], minlength=K),
+            np.bincount(kr[ia], minlength=K),
+            pos[ra], pos[rc], rf, *req, pos[ia], i_f, *info)
+
+
+def _columnar_keys(items):
+    """:func:`_columnar_extract` over ``items`` (``(key, cols)``), all
+    at once; where that is not sure, a key at a time. Returns the keys
+    it took and their columns (None where it took none)."""
+    got = _columnar_extract([c for _, c in items])
+    if got is not None:
+        return [k for k, _ in items], got
+    if len(items) == 1:
+        return [], None
+    keys, parts = [], []
+    for k, c in items:
+        one = _columnar_extract([c])
+        if one is not None:
+            keys.append(k)
+            parts.append(one)
+    if not keys:
+        return [], None
+    return keys, tuple(np.concatenate(x) for x in zip(*parts))
+
+
 def _intern_values_batched(key_of, ridx, v1t, v1v, v2t, v2v,
                            ikey, i1t, i1v, i2t, i2v, n_keys):
     """Vectorized per-key value-id interning with ValueIds' exact
@@ -809,15 +1158,21 @@ def pack_register_histories_batched(subhistories: dict,
                                     adapter=None) -> dict:
     """Batched structure-of-arrays form of ``pack_register_history``
     over a keyed dict of subhistories — the host side of the key-DP
-    axis. One merged Python pass per op does pairing + classification +
-    field extraction; everything downstream (value-id interning, dead-
-    value merge, predecessor/window geometry, version ceilings, time
-    rank compression) runs as single numpy calls vectorized ACROSS all
-    keys, using per-key segment offsets so every per-key searchsorted /
-    prefix-scan becomes one global operation on globally-sorted data.
+    axis. Column-backed keys (``History.columns``: every key of
+    Independent's split of a recorded run) are paired, classified and
+    decoded from their columns with numpy, all at once
+    (:func:`_columnar_extract`; one ``wgl.pack-columnar`` count a key
+    it takes); any other key, and any key that pass is not sure of,
+    takes one merged Python pass per op. Everything downstream
+    (value-id interning, dead-value merge, predecessor/window geometry,
+    version ceilings, time rank compression) runs as single numpy calls
+    vectorized ACROSS all keys, using per-key segment offsets so every
+    per-key searchsorted / prefix-scan becomes one global operation on
+    globally-sorted data.
 
     Per-key results are bit-identical to ``pack_register_history``
-    (differentially tested in tests/test_wgl_batch_pack.py), including
+    (tests/test_wgl_batch_pack.py; the numpy pass against the loop in
+    tests/test_torch_batch_pack.py), including
     indefinite updates (info/crashed writes and cas, their symmetry
     classes and count-word layout). Keys the columnar path can't
     express (adapters, non-int payload values, non-int/out-of-range
@@ -825,6 +1180,16 @@ def pack_register_histories_batched(subhistories: dict,
     silently delegate to the per-key packer, so only the constant
     factor ever changes. Returns ``{key: Packed}``."""
     out: dict = {}
+    col_keys, col = [], None
+    if adapter is None:
+        items = [(k, h.columns) for k, h in subhistories.items()
+                 if isinstance(h, History) and h.columns is not None]
+        if items:
+            col_keys, col = _columnar_keys(items)
+            if col_keys:
+                telemetry.current().counter("wgl.pack-columnar",
+                                            len(col_keys))
+    col_req = dict(zip(col_keys, col[0].tolist())) if col_keys else {}
     fast_keys: list = []
     seg_R_l: list = []
     seg_I_l: list = []
@@ -837,9 +1202,14 @@ def pack_register_histories_batched(subhistories: dict,
         if adapter is not None:
             out[key] = _pack_reference(h, adapter=adapter)
             continue
-        # column-backed per-key histories (Independent's split of a
-        # recorded run) extract straight from the SoA arrays — the
-        # dict op stream is never materialized on this path
+        n_req = col_req.get(key)
+        if n_req is not None:
+            if n_req == 0:
+                out[key] = Packed(ok=True, R=0)
+            continue
+        # the loop: column-backed keys the numpy pass left read their
+        # SoA arrays (no dict op stream is materialized), others their
+        # dict ops
         cols = getattr(h, "columns", None) if isinstance(h, History) \
             else None
         if cols is not None:
@@ -869,10 +1239,23 @@ def pack_register_histories_batched(subhistories: dict,
         fast_keys.append(key)
         seg_R_l.append(n_req)
         seg_I_l.append(len(ipos_l) - imark)
-    if not fast_keys:
-        return out
-    return _pack_batched_tail(fast_keys, seg_R_l, seg_I_l,
-                              lists, ilists, out)
+    col_fast = [k for k, r in col_req.items() if r]
+    if col_fast:
+        n_req, n_info = col[0], col[1]
+        # keys with no required op drop their indefinite updates
+        keep = np.repeat(n_req > 0, n_info)
+        _pack_batched_tail(col_fast, n_req[n_req > 0], n_info[n_req > 0],
+                           col[2:10], tuple(a[keep] for a in col[10:]),
+                           out)
+    if fast_keys:
+        _pack_batched_tail(fast_keys, seg_R_l, seg_I_l, lists, ilists,
+                           out)
+        if col_fast:
+            # packed keys in subhistories' order, after the others
+            packed = set(col_fast).union(fast_keys)
+            for key in [k for k in subhistories if k in packed]:
+                out[key] = out.pop(key)
+    return out
 
 
 def _pack_batched_tail(fast_keys, seg_R_l, seg_I_l, lists, ilists,

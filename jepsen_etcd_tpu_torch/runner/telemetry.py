@@ -191,6 +191,9 @@ REGISTRY = {
         "wgl.rung-kernel",        # rung runs csrc/wgl_rung.cu took
         "wgl.frames-card",        # lone ladders whose rung-kernel tables
                                   # csrc/wgl_frames.cu built
+        "wgl.pack-columnar",      # keys the batched pack paired, classed
+                                  # and decoded from their columns with
+                                  # numpy (ops/wgl.py _columnar_extract)
         "service.pack_s",         # host packing wall per tick (the
                                   # half double-buffering overlaps with
                                   # the previous tick's device wall)

@@ -217,8 +217,9 @@ def test_routing_constants_equal_reference():
 
 #: the blocks the port's telemetry.py adds to the reference's: the
 #: registry entries of the spans inside the port's ladder, split and
-#: DFS, and of the service's wave-kernel launch counter and the rung
-#: kernel's, which only the port records
+#: DFS, and of the service's wave-kernel launch counter, the rung
+#: kernel's and the batched pack's columnar extraction's, which only
+#: the port records
 PORT_REGISTRY = ("""        "wgl.tables",         # ops/wgl.py: a ladder's tables padded and
                               # copied to the card (a key, a lane)
         "wgl.frames",         # ... a key's frame tables built: on the
@@ -240,6 +241,9 @@ PORT_REGISTRY = ("""        "wgl.tables",         # ops/wgl.py: a ladder's table
         "wgl.rung-kernel",        # rung runs csrc/wgl_rung.cu took
         "wgl.frames-card",        # lone ladders whose rung-kernel tables
                                   # csrc/wgl_frames.cu built
+        "wgl.pack-columnar",      # keys the batched pack paired, classed
+                                  # and decoded from their columns with
+                                  # numpy (ops/wgl.py _columnar_extract)
 """)
 
 
