@@ -1368,14 +1368,18 @@ def elle_phase(card: str, dev) -> list:
               f"{stage_text(stages)}", flush=True)
         if res["valid?"] is not True or res["committed-count"] != ELLE_TXNS:
             fail(f"elle {kind}: {res['anomaly-types']}")
-        if [n for n, _ in spans] != ["closure.device"] or \
-                closure.LAUNCHES < 1:
+        if [n for n, _ in spans if n.startswith("closure.")] != \
+                ["closure.device"] or closure.LAUNCHES < 1:
             fail(f"elle {kind} did not close on the card: {spans}")
         res_bad, stages_bad, _ = elle_check(checker, bad)
         counts = {k: len(v) for k, v in res_bad["anomalies"].items()}
+        # the planted stale read's certificates come from the realtime
+        # vectors (graph._RealtimeSuccessors), never the n^2 pairs
         print(f"elle {kind} ({planted} planted): valid?="
-              f"{res_bad['valid?']} anomalies {counts}; stages (s): "
-              f"{stage_text(stages_bad)}", flush=True)
+              f"{res_bad['valid?']} anomalies {counts}; verdict and "
+              f"certificates in {stages_bad['wall']:.3f} s, of which "
+              f"certificates {stages_bad['certificates']:.3f} s; stages "
+              f"(s): {stage_text(stages_bad)}", flush=True)
         if res_bad["valid?"] is not False or \
                 planted not in res_bad["anomaly-types"]:
             fail(f"elle {kind}, {planted}: {res_bad['anomaly-types']}")

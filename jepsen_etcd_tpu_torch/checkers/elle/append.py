@@ -28,21 +28,14 @@ was observed by an ok read.
 from __future__ import annotations
 
 from collections import defaultdict
+from itertools import repeat
 from typing import Any, Optional
 
 import numpy as np
 
+from ...runner import telemetry
 from ..core import Checker
 from .graph import DepGraph, Txn, collect_txns, render_result
-
-
-def _collect(history) -> list[Txn]:
-    txns = collect_txns(history)
-    for t in txns:
-        for f, k, v in t.mops:
-            if f == "append":
-                t.appends[k].append(v)
-    return txns
 
 
 class ListAppendChecker(Checker):
@@ -61,9 +54,16 @@ class ListAppendChecker(Checker):
         self.use_tpu = use_tpu
         self.device = device
 
-    def check(self, test, history, opts=None) -> dict:
+    def _collect(self, history) -> tuple:
+        """The txns, their appends' writers, the reads' internal checks
+        and external prefixes, each key's version order and the
+        non-cycle anomalies."""
         anomalies: dict[str, list] = defaultdict(list)
-        txns = _collect(history)
+        txns = collect_txns(history)
+        for t in txns:
+            for f, k, v in t.mops:
+                if f == "append":
+                    t.appends[k].append(v)
         writer: dict[tuple, Txn] = {}
         for t in txns:
             for k, vs in t.appends.items():
@@ -86,24 +86,28 @@ class ListAppendChecker(Checker):
                     own_so_far[k].append(v)
                     continue
                 lst = list(v) if v is not None else []
-                if len(set(lst)) != len(lst):
+                n = len(lst)
+                if len(set(lst)) != n:
                     anomalies["duplicate-elements"].append(
                         {"op": dict(t.op), "mop": [f, k, v]})
                     continue
-                own = own_so_far[k]
-                if lst[len(lst) - len(own):] != own or len(lst) < len(own):
-                    anomalies["internal"].append(
-                        {"op": dict(t.op), "mop": [f, k, v],
-                         "expected-suffix": list(own)})
-                    continue
-                ext = lst[:len(lst) - len(own)]
-                if any(x in t.appends.get(k, []) for x in ext):
+                own = own_so_far.get(k)
+                if own:   # the read must end with the txn's own appends
+                    if n < len(own) or lst[n - len(own):] != own:
+                        anomalies["internal"].append(
+                            {"op": dict(t.op), "mop": [f, k, v],
+                             "expected-suffix": list(own)})
+                        continue
+                    ext = lst[:n - len(own)]
+                else:
+                    ext = lst
+                mine = t.appends.get(k)
+                if mine and any(x in mine for x in ext):
                     anomalies["internal"].append(
                         {"op": dict(t.op), "mop": [f, k, v],
                          "reason": "own append in external prefix"})
                     continue
-                for x in ext:
-                    observed.add((k, x))
+                observed.update(zip(repeat(k), ext))
                 ext_reads.append((k, tuple(ext), t))
 
         # -- per-key version order from prefix chains ------------------------
@@ -143,7 +147,12 @@ class ListAppendChecker(Checker):
                     {"op": dict(t.op), "key": k,
                      "read-prefix": list(ext),
                      "writer-appends": list(w.appends[k])})
+        return anomalies, txns, writer, ext_reads, observed, version_order
 
+    def _graph(self, txns: list, writer: dict, ext_reads: list,
+               observed: set, version_order: dict) -> tuple:
+        """(committed txns, their DepGraph): the ww, wr and rw edges
+        along the version orders, and the realtime vectors."""
         # -- committed node set ----------------------------------------------
         committed = [t for t in txns
                      if t.status == "ok" or
@@ -178,7 +187,16 @@ class ListAppendChecker(Checker):
             g.set_realtime(
                 np.array([t.invoke_index for t in committed], float),
                 np.array([t.complete_index for t in committed], float))
+        return committed, g
 
+    def check(self, test, history, opts=None) -> dict:
+        tel = telemetry.current()
+        with tel.span("elle.collect"):
+            anomalies, txns, writer, ext_reads, observed, \
+                version_order = self._collect(history)
+        with tel.span("elle.graph", txns=len(txns)):
+            committed, g = self._graph(txns, writer, ext_reads, observed,
+                                       version_order)
         for rec in g.find_cycles(realtime=self.realtime,
                                  force_device=self.use_tpu,
                                  device=self.device):

@@ -25,6 +25,7 @@ G-single cycle iff the *previous* level's closure already reaches b -> a
 
 from __future__ import annotations
 
+import itertools
 import logging
 import math
 from collections import defaultdict, deque
@@ -34,8 +35,9 @@ import numpy as np
 
 logger = logging.getLogger("jepsen_etcd_tpu_torch.checkers")
 
-from ...core.history import History
+from ...core.history import _CORE_KEYS, TYPE_NAMES, History
 from ...ops.closure import EdgeAccumulator, closure_levels_lazy
+from ...runner import telemetry
 
 WW, WR, RW, RT = "ww", "wr", "rw", "realtime"
 _ET_INDEX = {WW: 0, WR: 1, RW: 2}
@@ -72,11 +74,14 @@ class Txn:
     (from the invocation for non-ok ops, whose completion value may be
     missing)."""
 
-    __slots__ = ("op", "invoke_index", "complete_index", "mops", "status",
-                 "appends", "writes", "ext_reads", "node")
+    __slots__ = ("_op", "_row", "invoke_index", "complete_index", "mops",
+                 "status", "appends", "writes", "ext_reads", "node")
 
-    def __init__(self, op, invoke_index, complete_index, mops, status):
-        self.op = op
+    def __init__(self, op, invoke_index, complete_index, mops, status,
+                 row=None):
+        self._op = op
+        #: (OpColumns, row) of the completion where ``op`` is None
+        self._row = row
         self.invoke_index = invoke_index
         self.complete_index = complete_index
         self.mops = mops
@@ -86,9 +91,20 @@ class Txn:
         self.ext_reads: dict = {}               # rw-register: k -> v
         self.node: Optional[int] = None
 
+    @property
+    def op(self):
+        """The completion op; a column-backed txn builds it on first
+        read (only reports read it)."""
+        if self._op is None:
+            cols, i = self._row
+            self._op = cols.op_at(i)
+        return self._op
+
 
 def collect_txns(history) -> list[Txn]:
     h = history if isinstance(history, History) else History(history)
+    if h.columns is not None and _plain_columns(h.columns):
+        return _collect_txns_columns(h.columns)
     txns = []
     for op in h.client_ops():
         if not (op.is_completion and op.get("f") == "txn"):
@@ -103,15 +119,77 @@ def collect_txns(history) -> list[Txn]:
     return txns
 
 
-def _bfs_path(adj: dict[int, list], src: int, dst: int) -> Optional[list]:
-    """Shortest node path src..dst over adjacency lists (None if none)."""
+def _plain_columns(cols) -> bool:
+    """Whether ``cols`` rows read as their ops do without building
+    them: no core key missing or overridden by an extra, and each op's
+    ``index`` unique (else the op path raises, as it should)."""
+    if cols.missing or any(_CORE_KEYS.intersection(ex)
+                           for ex in cols.extras.values()):
+        return False
+    return len(np.unique(cols.index)) == len(cols.index)
+
+
+def _collect_txns_columns(cols) -> list[Txn]:
+    """collect_txns over a column-backed history, read from the columns:
+    the same txns in the same order, each completion op built only when
+    a report reads it. Invokes pair with completions per process as
+    ``pair_index`` pairs them; where it would raise, this raises too,
+    and as the op path does, only once some txn has completed."""
+    tc = cols.type_code.tolist()
+    pr = cols.proc.tolist()
+    idx = cols.index.tolist()
+    pt = cols.proc_table
+    is_txn = [f == "txn" for f in cols.f_table]
+    fc = cols.f_code.tolist()
+    value_at = cols.value_at
+    inf = math.inf
+    open_by: dict = {}
+    txns = []
+    error = None
+    for i, t in enumerate(tc):
+        p = pr[i]
+        if p < 0:
+            p = pt[-1 - p]
+        if t == 0:
+            if p in open_by and error is None:
+                error = ValueError(
+                    f"process {p!r} invoked op {idx[i]} while op "
+                    f"{idx[open_by[p]]} is still open")
+            open_by[p] = i
+            continue
+        j = open_by.pop(p, None)
+        if not (is_txn[fc[i]] and isinstance(p, int)):
+            continue
+        status = TYPE_NAMES[t]
+        v = value_at(i)
+        mops = v if (t == 1 and v) else \
+            (value_at(j) if j is not None else v) or []
+        txns.append(Txn(None, idx[j] if j is not None else idx[i],
+                        idx[i] if t == 1 else inf, mops, status,
+                        row=(cols, i)))
+    if error is not None and txns:
+        raise error
+    return txns
+
+
+def _bfs_path(adj: dict[int, list], src: int, dst: int,
+              rt: Optional["_RealtimeSuccessors"] = None) -> Optional[list]:
+    """Shortest node path src..dst over adjacency lists (None if none).
+    With ``rt``, each node's realtime successors follow its listed
+    neighbours, by ascending node index: the order the dense realtime
+    pairs of a level's adjacency lists gave, so the path is theirs."""
     if src == dst:
         return [src]
     prev: dict[int, int] = {src: src}
     q = deque([src])
+    if rt is not None:
+        rt.reset()
     while q:
         u = q.popleft()
-        for v in adj.get(u, ()):
+        nbrs = adj.get(u, ())
+        if rt is not None:
+            nbrs = itertools.chain(nbrs, rt.successors(u, prev))
+        for v in nbrs:
             if v in prev:
                 continue
             prev[v] = u
@@ -122,6 +200,38 @@ def _bfs_path(adj: dict[int, list], src: int, dst: int) -> Optional[list]:
                 return path[::-1]
             q.append(v)
     return None
+
+
+class _RealtimeSuccessors:
+    """A node's realtime successors, ``comp[u] < inv[j]``, ``j != u``,
+    from the two vectors: the nodes past a point of an index sorted by
+    invoke, never the n^2 pairs. Within one search the nodes invoked
+    after the least completion handed out so far (``floor``) have all
+    been found, so a node hands out only the slice between its
+    completion and that floor, and the search's work is O(n log n)."""
+
+    def __init__(self, invoke: np.ndarray, complete: np.ndarray):
+        self.complete = complete
+        self.order = np.argsort(invoke, kind="stable")
+        self.sorted_inv = invoke[self.order]
+        self.floor = math.inf
+
+    def reset(self) -> None:
+        """A new search: nothing handed out yet."""
+        self.floor = math.inf
+
+    def successors(self, u: int, found: dict) -> list:
+        """u's realtime successors not in ``found``, ascending. Every
+        node invoked after ``floor`` is in ``found`` already, so only
+        those invoked in (comp[u], floor] are looked at."""
+        c = self.complete[u]
+        if not c < self.floor:
+            return []
+        lo = np.searchsorted(self.sorted_inv, c, side="right")
+        hi = np.searchsorted(self.sorted_inv, self.floor, side="right")
+        self.floor = c
+        cand = np.sort(self.order[lo:hi])
+        return [j for j in cand.tolist() if j != u and j not in found]
 
 
 class DepGraph:
@@ -138,7 +248,9 @@ class DepGraph:
         self.n = n
         self._acc = EdgeAccumulator(len(_ET_INDEX))
         self._sets: Optional[dict] = None  # lazy, certificates only
-        self.rt: Optional[np.ndarray] = None  # dense [n, n] bool
+        #: (invoke, complete) float64 [n] vectors, or None: the
+        #: realtime relation, never held as a dense [n, n] matrix
+        self._rt_vecs: Optional[tuple] = None
 
     def add(self, etype: str, i: int, j: int) -> None:
         self._acc.add(_ET_INDEX[etype], i, j)
@@ -161,15 +273,21 @@ class DepGraph:
     def set_realtime(self, invoke_idx: np.ndarray,
                      complete_idx: np.ndarray) -> None:
         """T1 -> T2 iff T1 completed before T2 invoked (history indices;
-        ops that never completed carry +inf and get no outgoing edges)."""
-        self.rt = complete_idx[:, None] < invoke_idx[None, :]
-        np.fill_diagonal(self.rt, False)
-        # kept for the compact device path: the dense rt matrix is
-        # derivable from these two N-vectors on device, so the closure
-        # launch copies ~KBs instead of the O(B*N^2) bool stack (the
-        # [6, 4096, 4096] stack of 3.7k txns is 100 MB)
+        ops that never completed carry +inf and get no outgoing edges).
+        Only the two N-vectors are kept: the device builds the relation
+        from them on the card (~KBs copied instead of the O(B*N^2) bool
+        stack), the host's dense planes derive it on demand
+        (``_realtime``), and certificate searches take a node's
+        successors from them (``_RealtimeSuccessors``)."""
         self._rt_vecs = (np.asarray(invoke_idx, dtype=np.float64),
                          np.asarray(complete_idx, dtype=np.float64))
+
+    def _realtime(self) -> np.ndarray:
+        """The dense [n, n] realtime relation, for the host's planes."""
+        inv, comp = self._rt_vecs
+        rt = comp[:, None] < inv[None, :]
+        np.fill_diagonal(rt, False)
+        return rt
 
     # -- analysis ------------------------------------------------------------
 
@@ -178,8 +296,8 @@ class DepGraph:
         arrs = self._arrays()
         for et in etypes:
             if et == RT:
-                if self.rt is not None:
-                    a |= self.rt
+                if self._rt_vecs is not None:
+                    a |= self._realtime()
                 continue
             idx = arrs[_ET_INDEX[et]]
             if len(idx):
@@ -187,16 +305,14 @@ class DepGraph:
         return a
 
     def _adj_lists(self, *etypes: str) -> dict[int, list]:
+        """The typed edges of ``etypes`` as adjacency lists, type by
+        type in their sorted order (realtime, which has no list, is
+        ``_RealtimeSuccessors``')."""
         adj: dict[int, list] = {}
         seen = set()
         arrs = self._arrays()
         for et in etypes:
             if et == RT:
-                if self.rt is not None:
-                    for i, j in zip(*np.nonzero(self.rt)):
-                        if (i, j) not in seen:
-                            seen.add((i, j))
-                            adj.setdefault(int(i), []).append(int(j))
                 continue
             for i, j in arrs[_ET_INDEX[et]].tolist():
                 if (i, j) not in seen:
@@ -208,7 +324,8 @@ class DepGraph:
         for et in (WW, WR, RW):
             if (i, j) in self.edges[et]:
                 return et
-        if self.rt is not None and self.rt[i, j]:
+        if self._rt_vecs is not None and i != j and \
+                self._rt_vecs[1][i] < self._rt_vecs[0][j]:
             return RT
         return "?"
 
@@ -228,7 +345,7 @@ class DepGraph:
         if self.n == 0:
             return []
         levels = [(WW,), (WW, WR), (WW, WR, RW)]
-        use_rt = realtime and self.rt is not None
+        use_rt = realtime and self._rt_vecs is not None
         if use_rt:
             levels += [(WW, RT), (WW, WR, RT), (WW, WR, RW, RT)]
         # compact inputs: per-type edge lists + the rt vectors; the
@@ -242,13 +359,22 @@ class DepGraph:
             [[et in ets for et in et_order] + [RT in ets]
              for ets in levels])
         et_edges = [self._arrays()[_ET_INDEX[et]] for et in et_order]
-        rt_vecs = getattr(self, "_rt_vecs", None) if use_rt else None
+        rt_vecs = self._rt_vecs if use_rt else None
         reach_fn, on_cycle = closure_levels_lazy(
             et_edges, lvl_mask, self.n, rt_vecs,
             densify=lambda: np.stack([self._dense(*ets)
                                       for ets in levels]),
             force_device=force_device, device=device)
+        with telemetry.current().span("elle.certificates", n=self.n):
+            return self._certificates(levels, et_edges, reach_fn, on_cycle)
+
+    def _certificates(self, levels: list, et_edges: list, reach_fn,
+                      on_cycle: np.ndarray) -> list[dict]:
+        """find_cycles' anomaly records from the closure's ``on_cycle``
+        and ``reach``: each class's certificates, anchored."""
         adjs: dict[int, dict] = {}
+        rt = _RealtimeSuccessors(*self._rt_vecs) if len(levels) > 3 \
+            else None
 
         def adj(li: int) -> dict:
             if li not in adjs:
@@ -288,7 +414,8 @@ class DepGraph:
                 if any(reach[f][b, a] for f in forbid):
                     continue
                 scans += 1
-                back = _bfs_path(adj(need), b, a)
+                back = _bfs_path(adj(need), b, a,
+                                 rt if RT in levels[need] else None)
                 if back is None:
                     continue
                 cycle = [a] + back

@@ -105,6 +105,14 @@ REGISTRY = {
                               # split
         "oracle.dfs",         # checkers/linearizable.py check_history:
                               # the native DFS or its Python twin
+        "elle.collect",       # checkers/elle/append.py: txns
+                              # collected, reads checked, version
+                              # orders, the non-cycle anomalies
+        "elle.graph",         # ... the committed set, the DepGraph's
+                              # edges and realtime vectors
+        "elle.certificates",  # checkers/elle/graph.py find_cycles
+                              # after the closure: reach copied back,
+                              # the anchored certificate searches
     ),
     "hists": (
         "op.latency.*",       # per-op-class completion latency, seconds

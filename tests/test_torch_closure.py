@@ -216,8 +216,8 @@ def test_routing_constants_equal_reference():
 
 
 #: the blocks the port's telemetry.py adds to the reference's: the
-#: registry entries of the spans inside the port's ladder, split and
-#: DFS, and of the service's wave-kernel launch counter, the rung
+#: registry entries of the spans inside the port's ladder, split, DFS
+#: and Elle checker, and of the service's wave-kernel launch counter, the rung
 #: kernel's and the batched pack's columnar extraction's, which only
 #: the port records
 PORT_REGISTRY = ("""        "wgl.tables",         # ops/wgl.py: a ladder's tables padded and
@@ -235,6 +235,14 @@ PORT_REGISTRY = ("""        "wgl.tables",         # ops/wgl.py: a ladder's table
                               # split
         "oracle.dfs",         # checkers/linearizable.py check_history:
                               # the native DFS or its Python twin
+        "elle.collect",       # checkers/elle/append.py: txns
+                              # collected, reads checked, version
+                              # orders, the non-cycle anomalies
+        "elle.graph",         # ... the committed set, the DepGraph's
+                              # edges and realtime vectors
+        "elle.certificates",  # checkers/elle/graph.py find_cycles
+                              # after the closure: reach copied back,
+                              # the anchored certificate searches
 """, """        "service.wgl_wave_launches",  # wave-kernel launches a tick's
                                   # jobs made, each counted on its own
                                   # thread
